@@ -100,4 +100,14 @@ void spmv_ell_omp(int64_t m, int64_t slice_h, int64_t num_slices,
 
 int omp_max_threads() { return omp_get_max_threads(); }
 
+// 1 when this library was compiled with OpenMP; 0 when the compiler had
+// no -fopenmp and every kernel runs on one thread whatever it is asked.
+int spmv_built_with_openmp() {
+#ifdef _OPENMP
+    return 1;
+#else
+    return 0;
+#endif
+}
+
 }  // extern "C"

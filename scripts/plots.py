@@ -9,7 +9,7 @@ aggregates by median over iterations (plots.py:21-53), and renders:
 * serial GFLOPS bars per format (plots.py:57-81),
 * device GFLOPS bars per (format, chunk) with strategies as series
   (plots.py:92-115),
-* best-strategy CSR-vs-HLL/PELL comparison (plots.py:117-136),
+* best-strategy CSR-vs-HLL comparison (plots.py:117-136),
 * avg GFLOPS vs chunk per nnz-bin per strategy (plots.py:139-183),
 * host-parallel GFLOPS + speedup-vs-serial by nnz-bin
   (plots.py:195-207).

@@ -22,13 +22,15 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from spmv_scpa_tpu.testing import FLAGSHIP_SPEC  # noqa: E402
+
 # The synthetic stand-ins for the reference's 30-matrix SuiteSparse
 # suite (download-matrices.py:7-38) — same structural archetypes,
 # usable with zero network egress.
 SYNTH_SUITE = [
     "synth:banded:m=4000,row_nnz=9,bandwidth=48,runs=3,seed=1",       # olm1000-ish
     "synth:banded:m=62000,row_nnz=64,bandwidth=300,runs=8,seed=2",    # cant-ish
-    "synth:stencil:m=377000,points=6,run_len=12,bandwidth=500,seed=3",  # ML_Laplace-ish
+    FLAGSHIP_SPEC,                                                    # ML_Laplace-ish
     "synth:random:m=30000,n=30000,density=0.0005,seed=4",             # mac_econ-ish
     "synth:powerlaw:m=100000,n=100000,avg_nnz=8,seed=5",              # no-locality stress
     "synth:webbase:m=1000000,seed=7",                                 # webbase-1M stand-in
@@ -39,9 +41,7 @@ SYNTH_SUITE = [
 def compare(specs: list[str], strategies: list[str], out: str | None,
             debug: bool = True) -> int:
     """Per-archetype strategy comparison — ONE best cell per strategy
-    per matrix, validated, printed as a markdown table (the PERF_LOG
-    measurement flow of scripts/tpu_xpose_r4.py / tpu_measure_r3.py,
-    graduated into the official entry point per VERDICT r4 item 8).
+    per matrix, validated, printed as a markdown table.
 
     ``auto`` as a strategy name times whatever ``pick_auto`` routes to
     (labelled ``auto->%s``), so the table shows both the per-strategy
@@ -49,16 +49,15 @@ def compare(specs: list[str], strategies: list[str], out: str | None,
     """
     import numpy as np
 
-    from spmv_scpa_tpu.bench.timing import time_prepared, warm_compiler
+    from spmv_scpa_tpu.bench.timing import time_prepared
     from spmv_scpa_tpu.cli import parse_synth_spec
     from spmv_scpa_tpu.ops.oracle import spmv_oracle
     from spmv_scpa_tpu.ops.registry import get_strategy, pick_auto
-    from spmv_scpa_tpu.utils.platform import is_tpu
+    from spmv_scpa_tpu.utils.platform import device_info
     from spmv_scpa_tpu.utils.validation import validate_result
     from spmv_scpa_tpu.utils.vector import make_x
 
-    if is_tpu():
-        warm_compiler()
+    print(f"device: {device_info().as_dict()}", flush=True)
     lines = ["| matrix | strategy | ms | GF/s | rel_err |",
              "|---|---|---|---|---|"]
     failures = 0
@@ -109,8 +108,7 @@ def compare(specs: list[str], strategies: list[str], out: str | None,
     return 1 if failures else 0
 
 
-COMPARE_STRATEGIES = ["auto", "pallas-hybrid", "pallas-pell",
-                      "pallas-xpose", "pallas-nearfar", "pallas-chips",
+COMPARE_STRATEGIES = ["auto", "pallas-hell", "xla-ell-cm",
                       "xla-csr-segsum"]
 
 
@@ -121,9 +119,8 @@ def main() -> int:
     ap.add_argument("--synth-suite", action="store_true",
                     help="run the built-in synthetic archetype suite")
     ap.add_argument("--compare", action="store_true",
-                    help="one validated best cell per strategy per "
-                         "matrix, as a markdown table (the PERF_LOG "
-                         "archetype-comparison flow)")
+                    help="one validated cell per strategy per "
+                         "matrix, as a markdown table")
     ap.add_argument("-o", "--out", required=True, help="results dir")
     ap.add_argument("-i", "--iterations", type=int, default=3)
     ap.add_argument("--debug", action="store_true",
@@ -139,7 +136,6 @@ def main() -> int:
     ap.add_argument("--spmm-cols", default="0",
                     help="comma list of SpMM right-hand-side widths "
                          "(forwarded to the CLI; 0 disables)")
-    ap.add_argument("--chunks", default=None)
     args = ap.parse_args()
 
     specs: list[str] = []
@@ -169,8 +165,6 @@ def main() -> int:
                 argv.append("--distributed")
             if args.spmm_cols and args.spmm_cols != "0":
                 argv += ["--spmm-cols", str(args.spmm_cols)]
-            if args.chunks:
-                argv += ["--chunks", args.chunks]
             if args.subprocess:
                 rc = subprocess.run(
                     [sys.executable, "-m", "spmv_scpa_tpu.cli", *argv],

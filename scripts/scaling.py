@@ -1,15 +1,16 @@
 #!/usr/bin/env python
 """Parallel-scaling study — the reference's OpenMP thread sweep
-(src/main.c:177-180: threads in {2,4,8,16,32,40}) re-expressed in the
-TPU-native axis: devices in a 1-D mesh, swept over {1,2,4,8} on the
+(src/main.c:177-180: threads in {2,4,8,16,32,40}) re-expressed as a
+device axis: devices in a 1-D mesh, swept over {1,2,4,8} on the
 virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count),
 through the distributed row-sharded SpMV (parallel/distributed.py).
+CPU devices give relative scaling only; the GPU path is
+``chip_smoke.py --four-cards``.
 
 Rows land in omp.csv (schema: bench/logger.py) with
-``num_threads`` = device count and bench in
-{mesh_rowshard, mesh_rowshard_pell, mesh_rowshard_hybrid}; serial.csv gets the fp64 oracle
-row so plots.py can derive speedup-vs-parallelism per nnz bin
-(reference scripts/plots.py:186-248).
+``num_threads`` = device count and bench ``mesh_rowshard``; serial.csv
+gets the fp64 oracle row so plots.py can derive
+speedup-vs-parallelism per nnz bin (reference scripts/plots.py:186-248).
 
 Run: python scripts/scaling.py -o res/benchmarks
 """
@@ -44,12 +45,6 @@ def main() -> int:
     ap.add_argument("-o", "--out", required=True, help="results dir")
     ap.add_argument("--devices", default=None,
                     help="comma list of mesh sizes (default 1,2,4,8)")
-    ap.add_argument("--pell", action="store_true",
-                    help="also sweep the Pallas-PELL local kernel "
-                         "(interpret mode on CPU: relative scaling only)")
-    ap.add_argument("--hybrid", action="store_true",
-                    help="also sweep the lane-ELL hybrid local kernel "
-                         "(the round-3 flagship; interpret mode on CPU)")
     ap.add_argument("-m", "--matrix", default=None,
                     help="single matrix spec (synth:... or .mtx path) "
                          "instead of the built-in suite")
@@ -67,9 +62,8 @@ def main() -> int:
     from spmv_scpa_tpu.cli import parse_synth_spec
     from spmv_scpa_tpu.ops.oracle import spmv_oracle
     from spmv_scpa_tpu.ops.registry import get_strategy
-    from spmv_scpa_tpu.parallel.distributed import (
-        make_mesh, prepare_row_sharded, prepare_row_sharded_hybrid,
-        prepare_row_sharded_pell)
+    from spmv_scpa_tpu.parallel.distributed import (make_mesh,
+                                                    prepare_row_sharded)
     from spmv_scpa_tpu.utils.validation import validate_result
     from spmv_scpa_tpu.utils.vector import make_x
 
@@ -92,40 +86,18 @@ def main() -> int:
                               cols=A.n, nnz=A.nnz, num_blocks=None,
                               duration_ms=r.duration_ms, gflops=r.gflops)
 
-            variants = [("mesh_rowshard", prepare_row_sharded, {})]
-            if args.pell:
-                variants.append(("mesh_rowshard_pell",
-                                 prepare_row_sharded_pell,
-                                 {"window_h": 64}))
-            if args.hybrid:
-                variants.append(("mesh_rowshard_hybrid",
-                                 prepare_row_sharded_hybrid, {}))
-            for bench_name, prepare, kw in variants:
-                for nd in counts:
-                    mesh = make_mesh(devices=cpus[:nd])
-                    try:
-                        dist = prepare(A, mesh=mesh, **kw)
-                        raw = getattr(dist, "raw", None)
-                        if raw is not None:
-                            r = time_device_fn(raw, x, args=dist.args,
-                                               nnz=A.nnz)
-                        else:
-                            r = time_host_fn(dist.fn, x, nnz=A.nnz)
-                        validate_result(gold, r.data,
-                                        what=f"{bench_name} nd={nd}")
-                    except Exception as e:
-                        print(f"!!! {bench_name} nd={nd} failed: "
-                              f"{type(e).__name__}: {e}", file=sys.stderr)
-                        continue
-                    logger.log_omp(matrix=A.name, fmt="CSR",
-                                   bench=bench_name, rows=A.m, cols=A.n,
-                                   nnz=A.nnz, num_blocks=nd,
-                                   num_threads=nd,
-                                   duration_ms=r.duration_ms,
-                                   gflops=r.gflops)
-                    print(f"  {bench_name:20s} devices={nd}: "
-                          f"{r.duration_ms:9.3f} ms {r.gflops:7.3f} "
-                          "GFLOP/s", flush=True)
+            for nd in counts:
+                dist = prepare_row_sharded(
+                    A, mesh=make_mesh(devices=cpus[:nd]))
+                r = time_device_fn(dist.raw, x, args=dist.args, nnz=A.nnz)
+                validate_result(gold, r.data, what=f"mesh_rowshard nd={nd}")
+                logger.log_omp(matrix=A.name, fmt="CSR",
+                               bench="mesh_rowshard", rows=A.m, cols=A.n,
+                               nnz=A.nnz, num_blocks=nd, num_threads=nd,
+                               duration_ms=r.duration_ms, gflops=r.gflops)
+                print(f"  mesh_rowshard devices={nd}: "
+                      f"{r.duration_ms:9.3f} ms {r.gflops:7.3f} "
+                      "GFLOP/s", flush=True)
     return 0
 
 

@@ -1,24 +1,25 @@
-"""spmv_scpa_tpu — a TPU-native sparse matrix-vector multiplication framework.
+"""spmv_scpa_tpu — a sparse matrix-vector multiplication framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-``0xmenna/spmv-scpa`` C/OpenMP/CUDA reference study:
+``0xmenna/spmv-scpa`` C/OpenMP/CUDA reference study, running on an
+NVIDIA GPU:
 
 * Matrix Market loader with symmetric/pattern expansion
   (reference: ``src/mmio.c``, ``src/csr.c:31-171``),
-* CSR and HLL/ELLPACK-slice formats re-imagined as TPU-friendly layouts
-  (lane-padded ELL slices, nnz-balanced CSR row tiles, 8x128 BCSR tiles
-  for the MXU; reference: ``include/csr.h``, ``include/hll.h``),
-* a family of SpMV kernel strategies (XLA segment-sum baselines plus
-  Pallas/Mosaic TPU kernels) mirroring the reference's
-  serial / OpenMP / CUDA strategy axis (``src/csr.c``, ``src/hll.c``,
-  ``src/cuda_csr.cu``, ``src/cuda_hll.cu``),
+* CSR and HLL (hacked-ELLPACK slice) formats (reference:
+  ``include/csr.h``, ``include/hll.h``),
+* a family of SpMV kernel strategies (XLA gather + segment-sum and ELL
+  paths, and the per-slice-padded HLL kernel through Pallas/Triton)
+  mirroring the reference's serial / OpenMP / CUDA strategy axis
+  (``src/csr.c``, ``src/hll.c``, ``src/cuda_csr.cu``,
+  ``src/cuda_hll.cu``),
 * fp64-tolerance validation against a serial golden oracle
   (reference: ``src/utils.c:39-60``),
 * a benchmark harness reproducing the reference's CSV output
   (``src/logger.c``), batch runner (``scripts/results.py``) and plots
   (``scripts/plots.py``),
-* multi-vector SpMM through the MXU and row-sharded distributed SpMV
-  over ICI via ``shard_map`` (no analog in the reference, which is
+* multi-vector SpMM and row-sharded distributed SpMV over several GPUs
+  via ``shard_map`` (no analog in the reference, which is
   single-process; see SURVEY.md section 2 rows marked ABSENT-IN-REF).
 
 The compute path is pure JAX (XLA + Pallas); host-side preprocessing is
@@ -27,7 +28,6 @@ NumPy with an optional native C++ Matrix Market parser (``native/``).
 
 from spmv_scpa_tpu.formats.csr import CSR
 from spmv_scpa_tpu.formats.ell import EllSlices
-from spmv_scpa_tpu.formats.bcsr import BCSR
 from spmv_scpa_tpu.io.loader import load_csr
 from spmv_scpa_tpu.ops.oracle import spmv_oracle
 from spmv_scpa_tpu.ops.registry import (
@@ -41,7 +41,6 @@ __version__ = "0.1.0"
 __all__ = [
     "CSR",
     "EllSlices",
-    "BCSR",
     "load_csr",
     "spmv_oracle",
     "spmv",

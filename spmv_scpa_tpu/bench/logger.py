@@ -9,11 +9,12 @@ header only when the file is new, flushing after every row
 * ``cuda.csv``:   matrix,format,kernel,warps_per_block,rows,cols,nnz,num_blocks,duration_ms,gflops
 
 We keep the filenames and columns byte-identical so the reference's
-scripts/plots.py runs unmodified on our output; on TPU the
-``cuda.csv`` columns map to: kernel = device-strategy id (see
-STRATEGY_IDS), warps_per_block = the chunk (tiles-per-grid-step) tuning
-axis. ``num_blocks`` is empty for CSR rows, as in the reference
-(logger.c:92-96 prints an empty field).
+scripts/plots.py runs unmodified on our output. The ``cuda.csv``
+columns map to: kernel = device-strategy id (see STRATEGY_IDS),
+warps_per_block = the kernel's warp count (0 for XLA-compiled
+strategies), the SpMM width for SpMM rows, the device count for
+distributed rows. ``num_blocks`` is empty for CSR rows, as in the
+reference (logger.c:92-96 prints an empty field).
 """
 
 from __future__ import annotations
@@ -27,23 +28,13 @@ STRATEGY_IDS = {
     "xla-ell-rm": 1,
     "xla-ell-cm": 2,
     "xla-dense": 3,
-    "pallas-bcsr": 4,
-    "pallas-pell": 5,
     "xla-ell-df64": 6,
-    "pallas-bcsr-spmm": 7,
     "xla-csr-segsum-spmm": 8,
     "distributed-rowshard": 9,
-    "pallas-pell-df64": 10,
-    "pallas-hybrid": 11,
-    "pallas-hybrid-df64": 12,
-    "pallas-chips": 13,
-    # id 14 retired: it was reserved for a lane-ELL-layout SpMM
-    # ("pallas-hybrid-spmm") that was never built — SpMM ships as
-    # pallas-bcsr-spmm (id 7, matrix-stream-bound; docs/PERF_LOG.md).
-    # The id is not reused so old and new CSVs never collide.
-    "pallas-xpose": 15,
-    "pallas-nearfar": 16,
+    "pallas-hell": 17,
 }
+# Ids 4, 5, 7 and 10-16 belonged to removed strategies; they are not
+# reused, so old and new CSVs never collide.
 
 _HEADERS = {
     "serial": "matrix,format,rows,cols,nnz,num_blocks,duration_ms,gflops",
@@ -104,7 +95,8 @@ class CsvLogger:
                 f"{duration_ms:f},{gflops:f}\n")
         f.flush()
 
-    def log_device(self, *, matrix: str, fmt: str, kernel, chunk: int,
+    def log_device(self, *, matrix: str, fmt: str, kernel,
+                   warps_per_block: int,
                    rows: int, cols: int, nnz: int, num_blocks,
                    duration_ms: float, gflops: float):
         """A device-kernel row (the reference's log_*_cuda_benchmark,
@@ -112,6 +104,7 @@ class CsvLogger:
         if isinstance(kernel, str):
             kernel = STRATEGY_IDS.get(kernel, -1)
         f = self._files["cuda"]
-        f.write(f"{matrix},{fmt},{kernel},{chunk},{rows},{cols},{nnz},"
-                f"{self._blocks(num_blocks)},{duration_ms:f},{gflops:f}\n")
+        f.write(f"{matrix},{fmt},{kernel},{warps_per_block},{rows},{cols},"
+                f"{nnz},{self._blocks(num_blocks)},{duration_ms:f},"
+                f"{gflops:f}\n")
         f.flush()

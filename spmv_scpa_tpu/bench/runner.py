@@ -3,10 +3,9 @@
 Mirrors the reference's fixed benchmark order (main.c:361-379):
 serial CSR (captured as golden in debug mode, main.c:140-146) →
 serial HLL → host-parallel strategies (the OpenMP analog) → device
-strategies swept over the chunk tuning axis (the warps_per_block sweep,
-main.c:265-269). Each result is validated against the golden result
-when ``debug`` is set (utils.c:39-60; failures abort, main.c:161-168)
-and appended to the CSV logs (logger.c schemas).
+strategies. Each result is validated against the golden result when
+``debug`` is set (utils.c:39-60; failures abort, main.c:161-168) and
+appended to the CSV logs (logger.c schemas).
 """
 
 from __future__ import annotations
@@ -18,8 +17,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from spmv_scpa_tpu.bench.logger import CsvLogger
-from spmv_scpa_tpu.bench.timing import (BenchResult, time_host_fn,
-                                        time_prepared)
+from spmv_scpa_tpu.bench.timing import (BenchResult, time_device_fn,
+                                        time_host_fn, time_prepared)
 from spmv_scpa_tpu.errors import ValidationError
 from spmv_scpa_tpu.formats.csr import CSR
 from spmv_scpa_tpu.ops.registry import get_strategy, list_strategies
@@ -28,47 +27,40 @@ from spmv_scpa_tpu.utils.vector import DEFAULT_SEED, make_x
 
 log = logging.getLogger("spmv_scpa_tpu.bench")
 
-# Device-strategy tuning sweep: tiles per Pallas grid step — the
-# analog of the reference's warps_per_block in {2,4,8} (main.c:265-269).
-DEFAULT_CHUNKS = (32, 64, 128, 256)
-
 
 @dataclass
 class RunConfig:
     out_dir: str
     debug: bool = False
     strategies: list[str] | None = None   # None = all registered device
-    chunks: tuple = DEFAULT_CHUNKS
     seed: int = DEFAULT_SEED
     host_parallel: bool = False           # also run native-OMP (omp rows)
     # thread sweep for the OpenMP rows — the reference's sweep verbatim
-    # (main.c:177-180); runs regardless of core count (a 1-core
-    # container logs flat rows, docs/PERF_LOG.md)
+    # (main.c:177-180); runs regardless of core count
     omp_threads: tuple = (2, 4, 8, 16, 32, 40)
     skip_serial_hll: bool = False
-    # extra kwargs forwarded to pallas strategy prepare() — quantum,
-    # window_h, precision_passes, ... (the reference's tuning axes are
-    # hardcoded sweeps, main.c:177-180/265-269; ours are flags)
-    params: dict = field(default_factory=dict)
-    # multi-vector SpMM widths (BASELINE.json config 3); 0/() = SpMV
-    # only. An int benches one width, a tuple sweeps (the cols axis is
-    # the SpMM tuning dimension the way warps_per_block is the SpMV
-    # one). No reference analog — the reference is single-vector.
-    spmm_cols: int | tuple = 0
+    # multi-vector SpMM widths (BASELINE.json config 3); () = SpMV
+    # only. No reference analog — the reference is single-vector.
+    spmm_cols: tuple = ()
     # also benchmark the distributed row-sharded path (config 5) on
-    # this host's devices, logged under strategy id 9
+    # the compute platform's devices, logged under strategy id 9
     distributed: bool = False
-    # Filled by run_benchmarks: (strategy, chunk, reason) for every
-    # strategy x chunk cell that produced no CSV row — a sweep must not
-    # silently "pass" with most strategies missing (VERDICT r1 weak 8).
+    # Filled by run_benchmarks: (strategy, cell, reason) for every cell
+    # a strategy refused (``refused: ...``, e.g. a padding bound) or
+    # failed on. A sweep must not silently "pass" with strategies
+    # missing: the CLI exits non-zero on any failure.
     skipped: list = field(default_factory=list)
+
+    @property
+    def failed(self) -> list:
+        return [s for s in self.skipped if not s[2].startswith("refused")]
 
 
 @dataclass
 class RowResult:
     strategy: str
     fmt: str
-    chunk: int | None
+    cell: str | None           # "cols=8", "devices=4"; None for SpMV
     bench: BenchResult
     rel_err: float | None = None
     meta: dict = field(default_factory=dict)
@@ -77,6 +69,23 @@ class RowResult:
 def _fmt_blocks(prep):
     nb = prep.meta.get("num_blocks")
     return None if nb is None else int(nb)
+
+
+def _attempt(cfg, name, cell, run):
+    """Run one benchmark cell; a ``ValueError`` is the strategy
+    refusing the matrix, any other error a failure. Both are recorded
+    in ``cfg.skipped``; validation errors abort the run."""
+    try:
+        return run()
+    except ValidationError:
+        raise
+    except ValueError as e:
+        cfg.skipped.append((name, cell, f"refused: {e}"))
+        log.warning("%s (%s) refused: %s", name, cell, e)
+    except Exception as e:
+        cfg.skipped.append((name, cell, f"{type(e).__name__}: {e}"))
+        log.error("%s (%s) failed: %s", name, cell, e)
+    return None
 
 
 def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
@@ -105,9 +114,7 @@ def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
                               duration_ms=r.duration_ms, gflops=r.gflops)
             results.append(RowResult("oracle-ell", "HLL", None, r, rel))
 
-        # --- host-parallel rows (OpenMP analog: XLA auto-threaded on
-        # CPU; reference sweeps thread counts, main.c:177-180 — XLA
-        # manages its own pool, so one row at the pool size) ---
+        # --- host-parallel rows (OpenMP analog, main.c:177-180) ---
         if cfg.host_parallel:
             _run_host_parallel(A, x, golden, cfg, logger, results)
 
@@ -116,66 +123,33 @@ def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
             list_strategies(backend="pallas")
         for name in names:
             spec = get_strategy(name)
-            if spec.backend == "host":
-                continue
-            if spec.spmm and name.endswith("-spmm"):
+            if spec.backend == "host" or spec.spmm_only:
                 continue  # multi-vector strategies run in _run_spmm
-            # xla strategies and non-tunable pallas ones (e.g.
-            # pallas-xpose, whose geometry is plan-derived) get one
-            # cell — re-planning per chunk would re-run a 5-20 s host
-            # plan for identical rows
-            chunks = (cfg.chunks if spec.backend == "pallas"
-                      and spec.tunable else (0,))
-            seen_eff = set()   # effective (capped) chunks already logged
-            for chunk in chunks:
-                r = None
-                reason = None
-                for attempt in range(2):  # compile service can flake
-                    try:
-                        kw = dict(cfg.params) if chunk else {}
-                        if chunk:
-                            kw["chunk"] = chunk
-                        prep = spec.prepare(A, **kw)
-                        r = time_prepared(prep, x)
-                        break
-                    except ValidationError:
-                        raise
-                    except ValueError as e:  # e.g. VMEM budget exceeded
-                        reason = f"refused: {e}"
-                        log.warning("%s (chunk=%s) skipped: %s",
-                                    name, chunk, e)
-                        break
-                    except Exception as e:
-                        reason = f"{type(e).__name__}: {e}"
-                        log.warning("%s (chunk=%s) attempt %d failed: %s",
-                                    name, chunk, attempt, e)
-                if r is None:
-                    cfg.skipped.append((name, chunk, reason or "unknown"))
-                    continue
-                # the kernel may CAP the requested chunk (g_max bound on
-                # the per-step one-hot): log the EFFECTIVE chunk and
-                # drop duplicate cells so the scaling curve is honest
-                eff = prep.meta.get("chunk", chunk) or chunk
-                if eff in seen_eff:
-                    log.info("%-16s chunk=%-3s capped to %s (dup row "
-                             "dropped)", name, chunk, eff)
-                    continue
-                seen_eff.add(eff)
-                rel = _check(cfg, golden, r.data, f"{name} chunk={eff}",
-                             rtol=prep.meta.get("rtol"))
-                logger.log_device(matrix=A.name, fmt=spec.fmt, kernel=name,
-                                  chunk=eff, rows=A.m, cols=A.n,
-                                  nnz=A.nnz, num_blocks=_fmt_blocks(prep),
-                                  duration_ms=r.duration_ms,
-                                  gflops=r.gflops)
-                results.append(RowResult(name, spec.fmt, eff or None, r,
-                                         rel, dict(prep.meta)))
-                log.info("%-16s chunk=%-3s %10.4f ms %8.2f GFLOPS",
-                         name, eff or "-", r.duration_ms, r.gflops)
+
+            def run(spec=spec):
+                prep = spec.prepare(A)
+                return prep, time_prepared(prep, x)
+
+            got = _attempt(cfg, name, "spmv", run)
+            if got is None:
+                continue
+            prep, r = got
+            rel = _check(cfg, golden, r.data, name,
+                         rtol=prep.meta.get("rtol"))
+            # the cuda.csv warps_per_block column: the kernel's warp
+            # count where it has one, 0 for XLA-compiled strategies
+            warps = int(prep.meta.get("num_warps", 0))
+            logger.log_device(matrix=A.name, fmt=spec.fmt, kernel=name,
+                              warps_per_block=warps, rows=A.m, cols=A.n,
+                              nnz=A.nnz, num_blocks=_fmt_blocks(prep),
+                              duration_ms=r.duration_ms, gflops=r.gflops)
+            results.append(RowResult(name, spec.fmt, None, r, rel,
+                                     dict(prep.meta)))
+            log.info("%-16s %10.4f ms %8.2f GFLOPS", name, r.duration_ms,
+                     r.gflops)
 
         # --- distributed row-sharded SpMV (ABSENT-IN-REF; BASELINE
-        # config 5) on however many devices this host has — logged
-        # under its reserved strategy id (bench/logger.py) ---
+        # config 5) — logged under its reserved strategy id ---
         if cfg.distributed:
             _run_distributed(A, x, golden, cfg, logger, results)
 
@@ -183,102 +157,72 @@ def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
         if cfg.spmm_cols:
             _run_spmm(A, cfg, logger, results)
     if cfg.skipped:
-        log.warning("%d strategy x chunk cell(s) skipped: %s",
-                    len(cfg.skipped),
-                    "; ".join(f"{n}(chunk={c}): {why}"
+        log.warning("%d cell(s) produced no row: %s", len(cfg.skipped),
+                    "; ".join(f"{n}({c}): {why}"
                               for n, c, why in cfg.skipped))
     return results
 
 
 def _run_spmm(A, cfg, logger, results):
     """Multi-vector SpMM sweep over the ``cols`` axis. The golden is
-    ALWAYS computed and every row validated (VERDICT r2 weak 4: the
-    reference validates its whole sweep in -d mode, main.c:282-293 —
-    SpMM must not be the one unvalidated family). Each row also gets
-    roofline context: the kernel streams the same matrix bytes as SpMV
-    but does 2*nnz*cols flops, so GFLOP/s alone overstates how close
-    to hardware limits it runs."""
-    from spmv_scpa_tpu.bench import roofline as RL
+    ALWAYS computed and every row validated (the reference validates
+    its whole sweep in -d mode, main.c:282-293)."""
     from spmv_scpa_tpu.ops.oracle import spmm_oracle
 
-    cols_list = (cfg.spmm_cols if isinstance(cfg.spmm_cols, (tuple, list))
-                 else (cfg.spmm_cols,))
-    for cols in cols_list:
+    name = "xla-csr-segsum-spmm"
+    spec = get_strategy(name)
+    for cols in cfg.spmm_cols:
         X = make_x(A.n, cols=cols, seed=cfg.seed)
         golden = spmm_oracle(A, X)
-        for name in ("pallas-bcsr-spmm", "xla-csr-segsum-spmm"):
-            try:
-                spec = get_strategy(name)
-                prep = spec.prepare(A, cols=cols)
-                r = time_prepared(prep, X)
-                rel = validate_result(golden, r.data,
-                                      what=f"{name} cols={cols}")
-            except ValidationError:
-                raise
-            except Exception as e:
-                log.warning("%s cols=%d skipped: %s", name, cols, e)
-                cfg.skipped.append((name, cols,
-                                    f"{type(e).__name__}: {e}"))
-                continue
-            logger.log_device(matrix=A.name, fmt=spec.fmt, kernel=name,
-                              chunk=cols, rows=A.m, cols=A.n,
-                              nnz=A.nnz, num_blocks=_fmt_blocks(prep),
-                              duration_ms=r.duration_ms, gflops=r.gflops)
-            results.append(RowResult(name, spec.fmt, cols, r, rel,
-                                     dict(prep.meta)))
-            rep = RL.roofline(prep, r.duration_ms, r.gflops,
-                              x_bytes=A.n * cols * 4,
-                              y_bytes=A.m * cols * 4)
-            log.info("%-20s cols=%-3d %10.4f ms %8.2f GFLOPS "
-                     "(%.2f of HBM roofline, %.4f of MXU bf16 peak)",
-                     name, cols, r.duration_ms, r.gflops,
-                     rep.fraction, r.gflops / RL.MXU_PEAK_BF16_GFLOPS)
+
+        def run(cols=cols, X=X):
+            prep = spec.prepare(A, cols=cols)
+            return prep, time_prepared(prep, X)
+
+        got = _attempt(cfg, name, f"cols={cols}", run)
+        if got is None:
+            continue
+        prep, r = got
+        rel = validate_result(golden, r.data, what=f"{name} cols={cols}")
+        logger.log_device(matrix=A.name, fmt=spec.fmt, kernel=name,
+                          warps_per_block=cols, rows=A.m, cols=A.n,
+                          nnz=A.nnz, num_blocks=_fmt_blocks(prep),
+                          duration_ms=r.duration_ms, gflops=r.gflops)
+        results.append(RowResult(name, spec.fmt, f"cols={cols}", r, rel,
+                                 dict(prep.meta)))
+        log.info("%-20s cols=%-3d %10.4f ms %8.2f GFLOPS", name, cols,
+                 r.duration_ms, r.gflops)
 
 
 def _run_distributed(A, x, golden, cfg, logger, results):
-    """Row-sharded distributed SpMV rows (strategy id 9): on the real
-    TPU this is a 1-device mesh (one chip available here); on CPU hosts
-    it uses the virtual devices. Two local kernels — the flagship
-    lane-ELL hybrid and the fused PELL — validated + logged like any
-    kernel (one row per local-kernel format)."""
+    """Row-sharded distributed SpMV row (strategy id 9) over every
+    device of the compute platform: the GPUs of this host, or the
+    virtual CPU devices under test."""
     import jax
 
-    from spmv_scpa_tpu.parallel.distributed import (
-        make_mesh, prepare_row_sharded_hybrid, prepare_row_sharded_pell)
-    from spmv_scpa_tpu.utils.platform import is_tpu
+    from spmv_scpa_tpu.parallel.distributed import (make_mesh,
+                                                    prepare_row_sharded)
+    from spmv_scpa_tpu.utils.platform import device_info
 
-    devices = (jax.devices() if is_tpu()
-               else jax.devices("cpu"))
-    mesh = make_mesh(devices=devices)
-    for fmt, prep_fn in (("HYBRID", prepare_row_sharded_hybrid),
-                         ("PELL", prepare_row_sharded_pell)):
-        try:
-            dist = prep_fn(A, mesh=mesh)
-            r = time_prepared_raw(dist.raw, dist.args, x, nnz=A.nnz)
-            rel = _check(cfg, golden, r.data,
-                         f"distributed-rowshard[{fmt}]")
-        except Exception as e:
-            log.warning("distributed-rowshard[%s] skipped: %s", fmt, e)
-            cfg.skipped.append((f"distributed-rowshard[{fmt}]",
-                                len(devices),
-                                f"{type(e).__name__}: {e}"))
-            continue
-        logger.log_device(matrix=A.name, fmt=fmt,
-                          kernel="distributed-rowshard",
-                          chunk=len(devices),
-                          rows=A.m, cols=A.n, nnz=A.nnz,
-                          num_blocks=None,
-                          duration_ms=r.duration_ms, gflops=r.gflops)
-        results.append(RowResult("distributed-rowshard", fmt,
-                                 len(devices), r, rel))
-        log.info("distributed-rowshard[%s] devices=%d %10.4f ms "
-                 "%8.2f GFLOPS", fmt, len(devices), r.duration_ms,
-                 r.gflops)
+    devices = jax.devices(device_info().platform)
+    name = "distributed-rowshard"
 
+    def run():
+        dist = prepare_row_sharded(A, mesh=make_mesh(devices=devices))
+        return time_device_fn(dist.raw, x, args=dist.args, nnz=A.nnz)
 
-def time_prepared_raw(raw, args, x, *, nnz):
-    from spmv_scpa_tpu.bench.timing import time_device_fn
-    return time_device_fn(raw, x, args=args, nnz=nnz)
+    r = _attempt(cfg, name, f"devices={len(devices)}", run)
+    if r is None:
+        return
+    rel = _check(cfg, golden, r.data, name)
+    logger.log_device(matrix=A.name, fmt="CSR", kernel=name,
+                      warps_per_block=len(devices), rows=A.m, cols=A.n, nnz=A.nnz,
+                      num_blocks=None, duration_ms=r.duration_ms,
+                      gflops=r.gflops)
+    results.append(RowResult(name, "CSR", f"devices={len(devices)}", r,
+                             rel))
+    log.info("%s devices=%d %10.4f ms %8.2f GFLOPS", name, len(devices),
+             r.duration_ms, r.gflops)
 
 
 def _run_host_parallel(A, x, golden, cfg, logger, results):
@@ -286,8 +230,9 @@ def _run_host_parallel(A, x, golden, cfg, logger, results):
     benchmarks (csr.c:278-339, hll.c:178-211) as real OpenMP kernels
     (native/spmv_omp.cpp) swept over thread counts (main.c:177-180).
     Falls back to XLA-on-CPU when the native toolchain is missing.
-    NOTE: a 1-core container executes and logs the sweep but cannot
-    show speedup (docs/PERF_LOG.md)."""
+    A library built without OpenMP refuses every thread count above 1,
+    so those cells are recorded as refusals, not as rows. A container
+    with fewer cores than threads logs flat rows."""
     from spmv_scpa_tpu.ops import native_omp
 
     if not native_omp.available():
@@ -311,15 +256,11 @@ def _run_host_parallel(A, x, golden, cfg, logger, results):
             variants.append(("omp_ell", "HLL", E.num_slices,
                              lambda: native_omp.make_ell_omp(E, nt)))
         for bench_name, fmt, nblocks, make in variants:
-            try:
-                r = time_host_fn(make(), x, nnz=A.nnz)
-                rel = _check(cfg, golden, r.data,
-                             f"{bench_name} nt={nt}")
-            except Exception as e:
-                log.warning("%s nt=%d skipped: %s", bench_name, nt, e)
-                cfg.skipped.append((bench_name, nt,
-                                    f"{type(e).__name__}: {e}"))
+            r = _attempt(cfg, bench_name, f"threads={nt}",
+                         lambda: time_host_fn(make(), x, nnz=A.nnz))
+            if r is None:
                 continue
+            rel = _check(cfg, golden, r.data, f"{bench_name} nt={nt}")
             logger.log_omp(matrix=A.name, fmt=fmt, bench=bench_name,
                            rows=A.m, cols=A.n, nnz=A.nnz,
                            num_blocks=nblocks, num_threads=nt,

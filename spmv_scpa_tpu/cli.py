@@ -9,11 +9,12 @@ Extensions (documented differences):
 
 * ``-m synth:<archetype>:k=v,...`` generates a synthetic matrix
   (no-network environments; archetypes in spmv_scpa_tpu/testing.py).
-* ``--chunks`` — the device tuning sweep (warps_per_block analog).
-* ``--list-strategies``, ``--host-parallel``, ``--seed``.
+* ``--list-strategies``, ``--host-parallel``, ``--distributed``,
+  ``--spmm-cols``, ``--seed``.
 
 Exit codes are errno-style like the reference's ERR_PTR convention
-(err.h:10-12).
+(err.h:10-12); a run in which any strategy failed (as opposed to
+refusing the matrix) exits 1.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def parse_synth_spec(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spmv_scpa_tpu",
-        description="TPU-native SpMV benchmark suite "
-                    "(CSR/HLL/BCSR/PELL x XLA/Pallas strategies)")
+        description="SpMV benchmark suite "
+                    "(CSR/HLL x XLA/Pallas strategies)")
     p.add_argument("-m", "--matrix",
                    help=".mtx path or synth:<archetype>:k=v,...")
     p.add_argument("-o", "--out", help="results directory (CSV logs)")
@@ -69,17 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--bench", default=None,
                    help="comma-separated strategy filter "
                         "(dead flag in the reference, live here)")
-    p.add_argument("--chunks", default="32,64,128,256",
-                   help="device kernel tile-chunk sweep")
-    p.add_argument("--quantum", type=int, default=None,
-                   help="PELL slot quantum (8/16/32/64/128)")
-    p.add_argument("--window-h", type=int, default=None,
-                   help="epilogue window height in 8-row blocks")
-    p.add_argument("--precision-passes", type=int, default=None,
-                   help="bf16 MXU passes for f32 reduction (2 or 3)")
-    p.add_argument("--idx8", action="store_true",
-                   help="int8 index planes on <=2-strip hybrid planes "
-                        "(slot bytes 6 -> 5; ops/lane_ell.py)")
     p.add_argument("--spmm-cols", default="0",
                    help="also benchmark multi-vector SpMM at these "
                         "widths (comma list, e.g. 8,32,64; 0 = off)")
@@ -91,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also run the native C++/OpenMP kernels swept "
                         "over thread counts -> omp.csv (falls back to "
                         "one XLA-on-CPU row if the toolchain is "
-                        "missing)")
+                        "missing; a build without OpenMP refuses "
+                        "thread counts above 1)")
     p.add_argument("--no-cache", action="store_true",
                    help="disable the .npz preprocessed-layout cache "
                         "(the reference re-parses the .mtx every run, "
@@ -106,6 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from spmv_scpa_tpu.utils.platform import configure_compile_cache
+    configure_compile_cache()
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s")
@@ -147,23 +140,12 @@ def main(argv=None) -> int:
 
     from spmv_scpa_tpu.bench.runner import RunConfig, run_benchmarks
 
-    params = {}
-    if args.quantum:
-        params["quantum"] = args.quantum
-    if args.window_h:
-        params["window_h"] = args.window_h
-    if args.precision_passes:
-        params["precision_passes"] = args.precision_passes
-    if args.idx8:
-        params["idx8"] = True
     cfg = RunConfig(
         out_dir=args.out,
         debug=args.debug,
         strategies=args.bench.split(",") if args.bench else None,
-        chunks=tuple(int(c) for c in args.chunks.split(",")),
         seed=args.seed,
         host_parallel=args.host_parallel,
-        params=params,
         spmm_cols=tuple(c for c in
                         (int(s) for s in str(args.spmm_cols).split(","))
                         if c > 0),
@@ -177,21 +159,21 @@ def main(argv=None) -> int:
 
     for r in results:
         err = "" if r.rel_err is None else f"  rel_err={r.rel_err:.2e}"
-        chunk = "" if r.chunk is None else f" chunk={r.chunk}"
-        print(f"  {r.strategy:18s}{chunk:10s} {r.bench.duration_ms:10.4f} ms"
+        cell = "" if r.cell is None else f" {r.cell}"
+        print(f"  {r.strategy:18s}{cell:10s} {r.bench.duration_ms:10.4f} ms"
               f" {r.bench.gflops:9.3f} GFLOPS{err}")
         if args.print_result and r.bench.data is not None:
             head = np.array2string(
                 np.asarray(r.bench.data).ravel()[:args.print_result],
                 precision=6, max_line_width=100)
             print(f"    y[:{args.print_result}] = {head}")
-    if cfg.skipped:
-        print(f"WARNING: {len(cfg.skipped)} strategy x chunk cell(s) "
-              "produced no row:", file=sys.stderr)
-        for name, chunk, why in cfg.skipped:
-            print(f"  {name} (chunk={chunk}): {why}", file=sys.stderr)
+    failed = cfg.failed
+    for entry in cfg.skipped:
+        name, cell, why = entry
+        print(f"{'FAILED' if entry in failed else 'skipped'}: {name} "
+              f"({cell}): {why}", file=sys.stderr)
     print(f"CSV logs appended under {cfg.out_dir}/")
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

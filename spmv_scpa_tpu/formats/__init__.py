@@ -1,5 +1,4 @@
 from spmv_scpa_tpu.formats.csr import CSR
 from spmv_scpa_tpu.formats.ell import EllSlices
-from spmv_scpa_tpu.formats.bcsr import BCSR
 
-__all__ = ["CSR", "EllSlices", "BCSR"]
+__all__ = ["CSR", "EllSlices"]

@@ -1,6 +1,6 @@
 """Compressed Sparse Row format + row partitioners.
 
-TPU-native re-design of the reference's ``sparse_csr`` struct
+Re-design of the reference's ``sparse_csr`` struct
 (``include/csr.h:7-13``: ``{name, M, N, NZ, IRP[M+1], JA[NZ], AS[NZ]}``)
 and of its nnz-balanced OpenMP row partitioner
 (``partition_csr_rows``, ``src/csr.c:218-276``), which we reuse both as
@@ -8,8 +8,8 @@ the row-tile planner for single-chip kernels and as the shard planner
 for the distributed path.
 
 Host representation is NumPy (preprocessing is host-side); device
-kernels receive padded/tiled derivatives of it (see ``formats/ell.py``,
-``formats/bcsr.py`` and ``ops/``).
+kernels receive padded derivatives of it (see ``formats/ell.py`` and
+``ops/``).
 """
 
 from __future__ import annotations

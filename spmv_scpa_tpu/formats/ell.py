@@ -1,5 +1,4 @@
-"""ELLPACK slices — the TPU-native analog of the reference's HLL
-("hacked ELLPACK") format.
+"""ELLPACK slices — the reference's HLL ("hacked ELLPACK") format.
 
 Reference design (``include/hll.h:10-48``, ``src/hll.c:19-106``): the
 matrix is cut into row blocks of ``HACK_SIZE = 32`` rows; each block is
@@ -10,22 +9,20 @@ row-major (``JA[i*max_NZ+j]``, hll.c:87-88) or column-major
 columns to the row's last valid column so padded slots do in-bounds
 dummy reads (cuda_hll.cu:172-195).
 
-TPU re-design decisions:
+Design decisions:
 
-* slice height defaults to 32 like the reference, but any multiple of 8
-  (the f32 sublane count) works; the column-major layout puts the row
-  index in the trailing (lane) dimension — the reference study found
-  the coalesced column-major layout ~6.5x faster on GPU
-  (SURVEY.md section 6) and the same lane-contiguity argument holds on
-  the TPU VPU.
+* slice height defaults to 32 like the reference; the column-major
+  layout puts the row index in the fastest-varying position, so the
+  threads of a warp read consecutive words — the reference study found
+  this coalesced layout ~6.5x faster on GPU (SURVEY.md section 6).
 * the host format is a true HLL: per-slice max row length, blocks
   concatenated flat with per-slice offsets (SELL-C-style). Device
-  consumers either take the flat layout (Pallas, via scalar prefetch)
-  or a **uniform** padded ELL view (XLA, static shapes).
+  consumers either take the flat layout (``ops/hell.py``) or a
+  **uniform** padded ELL view (XLA, static shapes).
 * padding mode ``"last"`` replicates the reference's in-bounds dummy
   read trick (cuda_hll.cu:176-195); ``"neg1"`` replicates the host
-  format (hll.c:73-76). Default ``"last"`` — on TPU a padded slot
-  gathers a real x entry and multiplies by 0.0, no masking needed.
+  format (hll.c:73-76). Default ``"last"`` — a padded slot gathers a
+  real x entry and multiplies by 0.0, no masking needed.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Double-float (df64) arithmetic: fp64-grade accumulation on fp32 TPU.
+"""Double-float (df64) arithmetic: fp64-grade accumulation in f32.
 
-TPUs have no native fp64 (SURVEY.md section 7, hard part #2). To match
-the reference's fp64 serial oracle (csr.c:201-216) tighter than plain
-f32 allows, we carry values as an unevaluated pair ``hi + lo`` of f32
+To match the reference's fp64 serial oracle (csr.c:201-216) tighter
+than plain f32 allows without device f64 (SURVEY.md section 7, hard
+part #2), we carry values as an unevaluated pair ``hi + lo`` of f32
 (Dekker/Knuth error-free transformations):
 
 * ``two_sum``  — exact sum of two f32 into (hi, lo), 6 flops;
@@ -13,11 +13,10 @@ f32 allows, we carry values as an unevaluated pair ``hi + lo`` of f32
 
 This yields ~49 effective mantissa bits — far beyond the reference's
 1e-1 absolute L2 epsilon (utils.c:53) and enough for rel-err ~1e-12 on
-the benchmark suite. Used by the ``xla-ell-df64`` strategy (ops/xla.py)
-and available to Pallas kernels (the ops are plain jnp arithmetic).
+the benchmark suite. Used by the ``xla-ell-df64`` strategy (ops/xla.py).
 
-All ops require IEEE f32 multiply/add; on TPU the VPU provides that
-(the MXU's bf16x3 path is avoided by staying elementwise).
+All ops require IEEE f32 multiply/add; staying elementwise keeps them
+off any reduced-precision matrix unit.
 """
 
 from __future__ import annotations

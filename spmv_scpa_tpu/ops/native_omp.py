@@ -3,10 +3,11 @@
 
 The reference's OpenMP strategy family (csr.c:218-339, hll.c:178-211)
 lives here as real C++/OpenMP code swept over thread counts
-(main.c:177-180), not an XLA stand-in. Built on first use like the
-native .mtx parser (io/native.py). NOTE: some CI containers expose a
-single CPU core; the sweep still runs and logs, it just cannot show
-speedup there (documented in docs/PERF_LOG.md).
+(main.c:177-180), not an XLA stand-in. Built (or rebuilt when its
+source is newer) on first use. Where the compiler has no OpenMP the
+library is built single-threaded and reports it (:func:`openmp`); the
+kernel builders then refuse thread counts above 1, so no row is ever
+labelled with threads it did not run on.
 """
 
 from __future__ import annotations
@@ -37,12 +38,11 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR, "-s",
-                            "libspmvomp.so"],
-                           check=True, capture_output=True, timeout=120)
-        except Exception:
+    try:                        # a no-op when the library is up to date
+        subprocess.run(["make", "-C", _NATIVE_DIR, "-s", "libspmvomp.so"],
+                       check=True, capture_output=True, timeout=120)
+    except Exception:
+        if not os.path.exists(_LIB_PATH):
             return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
@@ -58,6 +58,7 @@ def _load():
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _I64P, _I32P,
         _I32P, _F64P, _F64P, _F64P, ctypes.c_int]
     lib.omp_max_threads.restype = ctypes.c_int
+    lib.spmv_built_with_openmp.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -69,6 +70,18 @@ def available() -> bool:
 def max_threads() -> int:
     lib = _load()
     return int(lib.omp_max_threads()) if lib else 1
+
+
+def openmp() -> bool:
+    """Whether the loaded library was compiled with OpenMP."""
+    lib = _load()
+    return bool(lib and lib.spmv_built_with_openmp())
+
+
+def _check_threads(nthreads: int):
+    if nthreads > 1 and not openmp():
+        raise ValueError(f"libspmvomp.so was built without OpenMP: "
+                         f"{nthreads} threads would run on one")
 
 
 def _csr_bufs(A: CSR):
@@ -96,6 +109,7 @@ def make_csr_serial(A: CSR):
 
 
 def make_csr_omp_guided(A: CSR, nthreads: int = 0):
+    _check_threads(nthreads)
     lib = _load()
     irp, ja, as_ = _csr_bufs(A)
 
@@ -115,6 +129,7 @@ def make_csr_omp_guided(A: CSR, nthreads: int = 0):
 def make_csr_omp_nnz(A: CSR, nthreads: int):
     """Static nnz-balanced spans (csr.c:218-276 planner + 305-339
     kernel); the Python partitioner plans, C++ executes."""
+    _check_threads(nthreads)
     lib = _load()
     irp, ja, as_ = _csr_bufs(A)
     bounds = np.ascontiguousarray(
@@ -141,6 +156,7 @@ def make_ell_omp(E, nthreads: int = 0):
     (branch-free dummy reads, cuda_hll.cu:176-195)."""
     assert E.col_major and E.pad_mode == "last", \
         "spmv_ell_omp needs col-major 'last'-padded slices"
+    _check_threads(nthreads)
     lib = _load()
     offsets = np.ascontiguousarray(E.offs, dtype=np.int64)
     widths = np.ascontiguousarray(E.max_nz, dtype=np.int32)

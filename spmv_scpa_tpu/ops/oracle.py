@@ -19,10 +19,7 @@ def spmv_oracle(A: CSR, x: np.ndarray) -> np.ndarray:
     x = np.asarray(x, dtype=np.float64)
     if x.shape[0] != A.n:
         raise ValueError(f"x has length {x.shape[0]}, expected {A.n}")
-    prod = A.as_ * x[A.ja]
-    y = np.zeros(A.m, dtype=np.float64)
-    np.add.at(y, A.row_ids(), prod)
-    return y
+    return _row_sums(A, A.as_ * x[A.ja])
 
 
 def spmm_oracle(A: CSR, X: np.ndarray) -> np.ndarray:
@@ -33,7 +30,16 @@ def spmm_oracle(A: CSR, X: np.ndarray) -> np.ndarray:
         return spmv_oracle(A, X)
     if X.shape[0] != A.n:
         raise ValueError(f"X has {X.shape[0]} rows, expected {A.n}")
-    prod = A.as_[:, None] * X[A.ja]
-    Y = np.zeros((A.m, X.shape[1]), dtype=np.float64)
-    np.add.at(Y, A.row_ids(), prod)
-    return Y
+    return _row_sums(A, A.as_[:, None] * X[A.ja])
+
+
+def _row_sums(A: CSR, prod: np.ndarray) -> np.ndarray:
+    """Per-row sums of the per-nonzero products, in row order. Each
+    non-empty row is one contiguous run starting at ``irp[r]`` (empty
+    rows in between start where the run ends), so ``reduceat`` over the
+    non-empty rows' starts sums exactly their entries."""
+    y = np.zeros((A.m,) + prod.shape[1:], dtype=np.float64)
+    nonempty = np.diff(A.irp) > 0
+    if prod.shape[0]:
+        y[nonempty] = np.add.reduceat(prod, A.irp[:-1][nonempty], axis=0)
+    return y

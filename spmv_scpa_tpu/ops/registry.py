@@ -24,16 +24,13 @@ Strategy-name mapping to the reference (SURVEY.md section 2 table):
                         coalesced/lane-contiguous layout
                         (cuda_hll.cu:49-72)
  xla-dense              tiny-matrix regime (launch-bound, SURVEY 6)
- pallas-bcsr            CUDA CSR k3 block-per-row: cooperative dense
-                        row-tiles, here 8x128 MXU tiles
-                        (cuda_csr.cu:96-140)
- pallas-pell            CUDA HLL k2 warp-per-block + k4 texture-x:
-                        panel-local ELL slots, x resident in VMEM
-                        (cuda_hll.cu:80-104, cuda_csr.cu:145-178)
+ pallas-hell            CUDA HLL k1 thread-per-row col-major with
+                        per-slice widths, through Pallas/Triton
+                        (cuda_hll.cu:49-72)
  xla-ell-df64           fp64-equivalence via double-float arithmetic
                         (the reference computes natively in fp64)
- pallas-bcsr-spmm       multi-vector SpMM through the MXU (no reference
-                        analog; BASELINE.json config 3)
+ xla-csr-segsum-spmm    multi-vector SpMM (no reference analog;
+                        BASELINE.json config 3)
 =====================  =====================================================
 """
 
@@ -76,15 +73,12 @@ class Prepared:
 @dataclass(frozen=True)
 class StrategySpec:
     name: str
-    fmt: str                          # CSR | HLL | BCSR | PELL | DENSE
+    fmt: str                          # CSR | HLL | DENSE
     backend: str                      # host | xla | pallas
     cite: str                         # reference file:line analog
     prepare: Callable[..., Prepared] = None
     spmm: bool = False                # supports multi-column x
     spmm_only: bool = False           # REQUIRES 2-D (n, cols) input
-    tunable: bool = True              # has the chunk tuning axis (the
-                                      # warps_per_block analog); False
-                                      # = one sweep cell per matrix
 
 
 _REGISTRY: dict[str, StrategySpec] = {}
@@ -120,13 +114,12 @@ def list_strategies(backend: str | None = None,
 def spmv(A: CSR, x, strategy: str = "auto", **params) -> np.ndarray:
     """One-shot convenience: prepare + run a strategy on (A, x).
 
-    SpMM-only strategies (``spmm_only``, e.g. ``pallas-bcsr-spmm``)
+    SpMM-only strategies (``spmm_only``, e.g. ``xla-csr-segsum-spmm``)
     accept a 1-D x too: it rides column 0 of a (n, cols) block and the
     matching y column is returned, so every ``list_strategies()`` entry
     is drivable through this one entry point.
     """
-    auto = strategy == "auto"
-    if auto:
+    if strategy == "auto":
         strategy = pick_auto(A)
     spec = get_strategy(strategy)
     x = np.asarray(x)
@@ -135,26 +128,7 @@ def spmv(A: CSR, x, strategy: str = "auto", **params) -> np.ndarray:
         X = np.zeros((x.shape[0], params.get("cols", 8)), x.dtype)
         X[:, 0] = x
         x, squeeze = X, True
-    try:
-        prep = spec.prepare(A, **params)
-    except ValueError:
-        if not auto:
-            raise
-        # auto fallback chain: pick_auto uses cheap necessary-condition
-        # checks (e.g. quick_envelope_ok for pallas-xpose), so prepare
-        # may still refuse mid-plan — fall back rather than surface the
-        # refusal to a user who asked for "auto" (VERDICT r4 item 7).
-        for fb in ("pallas-hybrid", "pallas-pell", "xla-csr-segsum"):
-            if fb == strategy:
-                continue
-            try:
-                spec = get_strategy(fb)
-                prep = spec.prepare(A, **params)
-                break
-            except ValueError:
-                continue
-        else:
-            raise
+    prep = spec.prepare(A, **params)
     y = np.asarray(prep.fn(x), dtype=np.float64)
     return y[:, 0] if squeeze else y
 
@@ -172,58 +146,50 @@ def bind(raw, args, prep_x=None, post=None):
     return fn
 
 
+# The H100's L2 (50 MB, data sheet). A matrix whose uniform ELL fits
+# stays in L2 across repeated calls, so its kernel is short and
+# per-call dispatch decides the time.
+L2_BYTES = 50 << 20
+
+
+def uniform_ell_slots(A: CSR, slice_h: int = 32) -> int:
+    """Slots of the uniform ELL layout (``xla-ell-*``): every slice of
+    ``slice_h`` rows padded to the global longest row. Each slot is 4 B
+    of value and 4 B of column in f32."""
+    max_len = int(np.diff(A.irp).max(initial=1))
+    return -(-A.m // slice_h) * slice_h * max(max_len, 1)
+
+
 def pick_auto(A: CSR) -> str:
-    """Heuristic strategy choice. On TPU the Pallas paths are the only
-    performant ones (XLA gather/scatter lower to near-scalar loops —
-    measured ~0.1-0.3 GFLOPS). The lane-ELL hybrid wins whenever the
-    matrix has enough diagonal locality for its sliding VMEM window
-    (flagship: 151.5 vs 82.9 GF/s; docs/PERF_LOG.md round 3) and the
-    resident x fits VMEM; otherwise PELL (column-striped fused path
-    for large n, windowed one-hot epilogue for pure scatter). On CPU
-    backends XLA segment-sum is fine.
+    """Strategy choice from the matrix and the platform alone.
 
-    Tiny-matrix (launch-bound) regime: below ~0.5M dense elements the
-    dense matvec beats every sparse path — measured on v5e
-    (scripts/tpu_tiny_r4.py, docs/PERF_LOG.md round 4): cage4-ish
-    0.76 us dense vs 1.7-9.4 us sparse; mhda416-ish 14.9 GF/s dense
-    vs 5.2 best-sparse; by olm1000-ish (1M dense elements) the
-    hybrid already wins. Matches the reference's launch-bound rows
-    (cuda_best_csr_hll.png, ~0-2 GF/s on cage4/olm1000/west2021).
+    On a GPU:
 
-    Scattered short-row regime (round 5): ``pallas-xpose`` (the
-    static-routed transpose) wins when rows are too short to amortize
-    the hybrid's lane-slot padding — measured on v5e
-    (docs/PERF_LOG.md round 5): webbase archetype (3.1 nnz/row,
-    80% local) xpose 6.21 vs hybrid 1.96 GF/s; amazon archetype
-    (3.8-4.7 nnz/row, tight locality + hubs) hybrid 6.91 vs xpose
-    5.42. Both archetypes sit at locality ~0.82-0.84, so the measured
-    discriminator is row length: truly banded (locality ~1) or
-    locality >= 0.5 with >= 3 nnz/row -> hybrid (enough work per row
-    to amortize lane-slot padding); otherwise xpose when the cheap
-    envelope check passes. quick_envelope_ok is a necessary condition
-    only — spmv()'s auto path keeps a fallback chain for mid-plan
-    rejections."""
-    from spmv_scpa_tpu.utils.platform import is_tpu
-    if not is_tpu():
+    * ``xla-csr-segsum`` when the slot fill of 32-row slices is below
+      ``hell.MIN_FILL`` (rows too uneven for any ELL layout); it needs
+      no padding at all;
+    * else ``xla-ell-cm`` when its uniform layout fits in L2
+      (``L2_BYTES``): there every kernel takes at most ~25 us and
+      per-call dispatch decides, which costs ~10 us less for the XLA
+      fusion than for the Triton kernel (on an H100 ``xla-ell-cm`` was
+      faster end to end on the cant-scale, random and 40k-row amazon
+      archetypes, the last although its kernel took 3x as long;
+      PERF.md);
+    * else ``pallas-hell`` (per-slice-padded HLL through Triton): every
+      slot it reads is 8 B streamed once, while the uniform layout pads
+      every slice to the longest row and the segment-sum path pays a
+      scatter-add per nonzero.
+
+    Off the GPU, always ``xla-csr-segsum``."""
+    from spmv_scpa_tpu.ops import hell
+    from spmv_scpa_tpu.utils.platform import device_info
+
+    if (device_info().platform != "gpu" or not A.nnz
+            or hell.hell_fill(A) < hell.MIN_FILL):
         return "xla-csr-segsum"
-    if A.m * A.n <= 500_000:
-        return "xla-dense"
-    if A.nnz:
-        # resident-x bound of the hybrid (lane_ell.X_VMEM_BUDGET):
-        # ~2.5M padded columns/rows of f32
-        g_pad = -(-A.m // 128)
-        fits = ((g_pad + 65) * 128 * 4 <= 10 << 20
-                and A.n <= (10 << 20) // 4)
-        if fits:
-            avg = A.nnz / max(A.m, 1)
-            d = np.abs(A.ja.astype(np.int64) - A.row_ids())
-            loc = float(np.mean(d <= 4096))
-            if loc >= 0.98 or (loc >= 0.5 and avg >= 3.0):
-                return "pallas-hybrid"
-        from spmv_scpa_tpu.ops.xpose_plan import quick_envelope_ok
-        if quick_envelope_ok(A):
-            return "pallas-xpose"
-    return "pallas-pell"
+    if uniform_ell_slots(A) * 8 <= L2_BYTES:
+        return "xla-ell-cm"
+    return "pallas-hell"
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +205,10 @@ def _ensure_builtin():
         return
     _BUILTIN_DONE = True
 
-    import jax
     import jax.numpy as jnp
 
     from spmv_scpa_tpu.formats.ell import csr_to_ell
+    from spmv_scpa_tpu.ops import hell
     from spmv_scpa_tpu.ops import xla as xla_ops
     from spmv_scpa_tpu.ops.oracle import spmv_oracle
 
@@ -270,12 +236,11 @@ def _ensure_builtin():
         # uniform ELL pads every row to the global max row length —
         # refuse when that explodes (power-law matrices; the reference
         # HLL study shows the same failure mode, SURVEY.md section 6)
-        max_len = int(np.diff(A.irp).max(initial=1))
-        ns = -(-A.m // slice_h)
-        if ns * slice_h * max(max_len, 1) > max_padded:
+        if uniform_ell_slots(A, slice_h) > max_padded:
             raise ValueError(
-                f"uniform ELL padding too large (max row {max_len}); "
-                "use CSR/PELL strategies for this matrix")
+                f"uniform ELL padding too large (max row "
+                f"{int(np.diff(A.irp).max())}); "
+                "use xla-csr-segsum or pallas-hell for this matrix")
         E = csr_to_ell(A, slice_h=slice_h, col_major=col_major,
                        pad_mode="last")
         U = E.to_uniform()
@@ -315,10 +280,10 @@ def _ensure_builtin():
                           prepare=lambda A, **kw: _prep_xla_ell(A, True, **kw)))
     def _prep_xla_ell_df64(A: CSR, slice_h: int = 32,
                            max_padded: int = 1 << 28, **_):
-        max_len = int(np.diff(A.irp).max(initial=1))
-        if -(-A.m // slice_h) * slice_h * max(max_len, 1) > max_padded:
+        if uniform_ell_slots(A, slice_h) > max_padded:
             raise ValueError(
-                f"uniform ELL padding too large (max row {max_len}); "
+                f"uniform ELL padding too large (max row "
+                f"{int(np.diff(A.irp).max())}); "
                 "df64 path unavailable for this matrix")
         E = csr_to_ell(A, slice_h=slice_h, col_major=True,
                        pad_mode="last")
@@ -356,7 +321,8 @@ def _ensure_builtin():
         from spmv_scpa_tpu.ops import native_omp
         if not native_omp.available():
             raise ValueError("native OpenMP library unavailable "
-                             "(g++ -fopenmp required; see native/)")
+                             "(make and a C++ compiler required; see "
+                             "native/)")
         nblocks = None
         if kind == "guided":
             fn = native_omp.make_csr_omp_guided(A, nthreads)
@@ -389,11 +355,16 @@ def _ensure_builtin():
                           prepare=lambda A, **kw: _prep_omp(A, "ell",
                                                             **kw)))
 
-    # Pallas strategies register themselves on import; tolerate absence
-    # (e.g. stripped builds) but not real import errors.
-    from spmv_scpa_tpu.ops import pallas_kernels  # noqa: F401
-    pallas_kernels.register_all(register, StrategySpec, Prepared)
-    from spmv_scpa_tpu.ops import xpose  # noqa: F401
-    xpose.register_xpose(register, StrategySpec, Prepared)
-    from spmv_scpa_tpu.ops import nearfar  # noqa: F401
-    nearfar.register_nearfar(register, StrategySpec, Prepared)
+    def _prep_hell(A: CSR, interpret: bool = False, **_):
+        E = hell.plan_hell(A)
+        raw, args = hell.make_hell(E, A.m, interpret=interpret)
+        return Prepared("pallas-hell", A.name, bind(raw, args),
+                        on_device=True, nnz=A.nnz, raw=raw, args=args,
+                        hbm_bytes=E.padded_nnz * 8 + E.num_slices * 8,
+                        meta={"num_blocks": E.num_slices, "fill": E.fill,
+                              "num_warps": hell.NUM_WARPS})
+
+    register(StrategySpec("pallas-hell", "HLL", "pallas",
+                          "cuda_hll.cu:49-72 (k1 thread-per-row, "
+                          "col-major, per-slice widths)",
+                          prepare=_prep_hell))

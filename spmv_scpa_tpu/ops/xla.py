@@ -8,8 +8,8 @@ constants (gigabytes re-shipped per compile). The registry jits and
 binds them; the bench layer embeds ``raw`` in timing loops
 (bench/timing.py).
 
-These are the always-correct baselines of the strategy axis, the TPU
-analog of the reference's straightforward kernels:
+These are the always-correct baselines of the strategy axis, the
+analogs of the reference's straightforward kernels:
 
 * ``csr_segsum`` — per-nonzero gather ``x[JA]`` then row segment-sum;
   the analog of thread-per-row CUDA k0 (cuda_csr.cu:19-31) / the OpenMP
@@ -114,7 +114,9 @@ def make_dense(A: CSR, dtype=jnp.float32):
     args = (_put(A.to_dense(), dtype),)
 
     def raw(x, Ad):
-        return Ad @ x.astype(Ad.dtype)
+        # HIGHEST: an f32 product may otherwise run in TF32 (~1e-3)
+        return jnp.matmul(Ad, x.astype(Ad.dtype),
+                          precision=jax.lax.Precision.HIGHEST)
 
     return raw, args
 
@@ -153,7 +155,7 @@ def serial_ell(E, x: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def make_ell_df64(E: UniformEll):
-    """fp64-equivalent SpMV on TPU via double-float arithmetic
+    """fp64-equivalent SpMV in f32 via double-float arithmetic
     (ops/df64.py): matrix values and x are carried as (hi, lo) f32
     pairs, products use error-free transformations, and the slot
     reduction is a compensated loop. Matches the fp64 oracle to
@@ -161,7 +163,7 @@ def make_ell_df64(E: UniformEll):
     (utils.c:53); this is the BASELINE.json "fp64 tolerance" knob.
 
     Input protocol: ``prep_x`` packs the host f64 x into a stacked
-    (2, n) f32 hi/lo array (device f64 is unsupported on TPU).
+    (2, n) f32 hi/lo array, so the path needs no device f64.
     """
     import numpy as np
 

@@ -2,23 +2,24 @@
 
 ABSENT-IN-REF: the reference is strictly single-process / single-GPU
 (SURVEY.md section 2, distributed rows) — this is the capability the
-BASELINE.json config 5 adds: shard A's rows across chips, keep x
-replicated (all-gathered over ICI), compute local SpMV per chip,
-results stay row-sharded.
+BASELINE.json config 5 adds: shard A's rows across devices, keep x
+replicated, compute local SpMV per device, reassemble one global y.
 
 Design (idiomatic JAX, not an MPI translation):
 
-* 1-D mesh over all devices, axis ``"rows"``.
+* 1-D mesh over the devices, axis ``"rows"``. Every GPU of a host
+  reaches every other over NVLink at the same rate, so the mesh follows
+  the algorithm alone.
 * The nnz-balanced row partitioner (the OpenMP planner re-used as the
   shard planner — formats/csr.py:partition_rows_by_nnz, reference
-  csr.c:218-276) chooses per-chip row spans; spans are padded to equal
-  row counts so shards have static identical shapes (SPMD requirement).
-* Within ``shard_map``: x arrives replicated (an all-gather over ICI
-  inserted by the sharding, riding the ring); each chip runs the local
-  strategy kernel; y stays sharded along "rows".
-
-Every per-chip shard is itself a CSR, so any registered single-chip
-strategy (XLA or Pallas) serves as the local kernel.
+  csr.c:218-276) chooses per-device row spans; spans are padded to
+  equal row counts so shards have static identical shapes (SPMD
+  requirement).
+* Within ``shard_map``: x arrives replicated; each device runs the XLA
+  gather + segment-sum local kernel and returns its padded rows.
+  ``_unpad_rows`` then slices off each shard's padding and concatenates
+  the shards into one global y, which XLA replicates on every device
+  (an all-reduce on GPUs).
 """
 
 from __future__ import annotations
@@ -45,10 +46,7 @@ def make_mesh(n_devices: int | None = None, devices=None, axis: str = "rows"):
 def _unpad_rows(y_pad, bounds: np.ndarray, m: int):
     """Reassemble global y from per-shard padded rows ``(n_dev,
     h_pad)`` by STATIC slices (``bounds`` are host values, so every
-    slice shape is compile-time). The previous searchsorted+take form
-    paid a near-scalar XLA gather over all m rows EVERY call
-    (~30 ns/row, CLAUDE.md) — measured as the bulk of the distributed
-    mesh=1 overhead (flagship: 2.85 ms vs 0.296 single-chip)."""
+    slice shape is compile-time) — no gather over all m rows."""
     import jax
     import jax.numpy as jnp
     n_dev = y_pad.shape[0]
@@ -86,7 +84,7 @@ class RowShardedSpmv:
 
 
 def prepare_row_sharded(A: CSR, mesh=None, n_shards: int | None = None,
-                        dtype=None, local_strategy: str = "segsum"):
+                        dtype=None):
     """Build the distributed SpMV.
 
     The local kernel is the XLA segment-sum CSR (always valid). Each
@@ -161,703 +159,4 @@ def prepare_row_sharded(A: CSR, mesh=None, n_shards: int | None = None,
                          bounds=bounds, shard_nnz=shard_nnz)
     out.raw = raw
     out.args = (ja_d, as_d, seg_d)
-    return out
-
-
-def _plan_sharded_chips(cores, h_rows: int, n: int,
-                        split_only: bool = False):
-    """Per-shard resident chips plans unified to ONE SPMD shape.
-
-    Row-sharding SHRINKS each shard's tail into the cheap resident
-    regime (per-shard dedup'd tail columns ~ 1/n_dev of the global
-    set), so only the single resident pipeline needs SPMD treatment —
-    a matrix whose global tail busts the resident caps (webbase-class)
-    fits per shard once n_dev is a few. All shards must share every
-    static kernel shape; per-shard structure is pure DATA
-    (ops/chips_tail.py:pad_resident_plan). Returns a list of padded
-    ``ChipsPlan`` (one per shard) or None when any shard's tail
-    doesn't fit (caller keeps the XLA segment-sum tail).
-    """
-    from spmv_scpa_tpu.ops import chips_tail as CT
-
-    tails = []
-    for c in cores:
-        tr, tc, tv = c.trows, c.tcols, c.tvals
-        if tr.size == 0:
-            # zero-tail shard: one zero-valued dummy entry gives the
-            # planner a well-formed, zero-contribution plan
-            tr = np.zeros(1, np.int64)
-            tc = np.zeros(1, np.int64)
-            tv = np.zeros(1, np.float64)
-        tails.append((np.asarray(tr, np.int64),
-                      np.asarray(tc, np.int64), tv))
-
-    if split_only:                 # forced (tail_kind="chips-split")
-        return _plan_sharded_split(tails, h_rows, n)
-
-    def _plan_all(r_cap):
-        ps = []
-        for tr, tc, tv in tails:
-            p = CT._plan_single(tr, tc, tv, h_rows, n, 256, 8,
-                                r_cap=r_cap)
-            if p is None:
-                return None
-            ps.append(p)
-        return ps
-
-    plans = _plan_all(None)
-    if plans is None:
-        return _plan_sharded_split(tails, h_rows, n)
-    R = max(p.R for p in plans)         # stage-1 reach: static shape
-    if any(p.R != R for p in plans):
-        plans = _plan_all(R)
-        if plans is None:
-            return _plan_sharded_split(tails, h_rows, n)
-
-    ng = max(p.n_groups for p in plans)
-    n1p = max(p.n1p_blocks for p in plans)
-    nw = max(p.num_windows for p in plans)
-    NH = max(p.NH for p in plans)
-    steps = max(p.E8 // p.rows_per_step + (nw - p.num_windows)
-                for p in plans)
-    if steps * 8 * ng * 8 * 128 * 3 > CT.SPLIT_VPU_BUDGET:
-        return _plan_sharded_split(tails, h_rows, n)
-    out = []
-    for p in plans:
-        pool = np.setdiff1d(np.arange(h_rows, dtype=np.int64),
-                            p.heavy_ids, assume_unique=False)
-        out.append(CT.pad_resident_plan(
-            p, n_groups=ng, n1p_blocks=n1p, steps=steps,
-            num_windows=nw, NH=NH, heavy_pad_pool=pool))
-    return out
-
-
-def _plan_sharded_split(tails, h_rows: int, n: int):
-    """SPMD unification of SPLIT chips plans (round 4, VERDICT r3
-    item 4): a webbase-class shard tail whose dedup'd columns bust the
-    resident caps rides the windowed-x local stream plus the
-    popularity-split far/cold residents (ops/chips_tail.py). Every
-    plan DECISION — the direct-x mode, the windowed reach r_hot, the
-    stage-1 reaches, the popularity cutoff, the stream set — is forced
-    to one shared value across shards so they compile to ONE program;
-    the remaining per-shard differences are shapes, padded by
-    ``pad_split_plan``. Returns a list of padded SplitChipsPlan or
-    None (caller keeps the XLA segment-sum tail)."""
-    from spmv_scpa_tpu.ops import chips_tail as CT
-
-    frees = [CT.plan_chips_split(tr, tc, tv, h_rows, n)
-             for tr, tc, tv in tails]
-    if any(f is None for f in frees):
-        return None
-    r_hot = max((f.loc.r_hot for f in frees if f.loc), default=16)
-    if -(-n // 128) + r_hot > CT.H_WIN_CAP:
-        # the shared loc stream would need the dedup'd windowed mode,
-        # whose per-shard stage-1 reach is another decision to unify —
-        # not wired yet; beyond ~2M columns keep the XLA tail
-        return None
-    r_far = max((f.far.r1 for f in frees if f.far), default=None)
-    r_cold = max((f.cold.r1 for f in frees if f.cold), default=None)
-    pop_k = max(f.pop_k for f in frees)
-    names = tuple(sorted(set().union(*(
-        {k for k in ("loc", "far", "cold")
-         if getattr(f, k) is not None} for f in frees))))
-    plans = [CT.plan_chips_split(
-        tr, tc, tv, h_rows, n, x_direct=True, r_hot=r_hot,
-        r_far=r_far, r_cold=r_cold, pop_k=pop_k, force_streams=names)
-        for tr, tc, tv in tails]
-    if any(p is None for p in plans):
-        return None
-    tpl = CT.split_shape_template(plans)
-    out = []
-    for p in plans:
-        pool = np.setdiff1d(np.arange(h_rows, dtype=np.int64),
-                            p.heavy_ids, assume_unique=False)
-        out.append(CT.pad_split_plan(p, tpl, pool))
-    return out
-
-
-def prepare_row_sharded_hybrid(A: CSR, mesh=None,
-                               n_shards: int | None = None,
-                               loc_w: int | str = "auto",
-                               slots: int | str = "auto",
-                               chunk: int = 24, dtype=None,
-                               strip_cov: float | None = 0.985,
-                               tail_kind: str = "auto",
-                               ext: bool | str = "auto",
-                               idx8: bool = False,
-                               interpret: bool | None = None):
-    """Distributed SpMV with the lane-ELL hybrid as the local kernel —
-    the round-3 flagship (151.5 GF/s = 0.90 roofline single-chip,
-    docs/PERF_LOG.md) instead of the fused PELL.
-
-    Sharding recipe (same as ``prepare_row_sharded_pell``): nnz-balanced
-    contiguous row spans padded to a uniform height; x replicated; y
-    row-sharded. The hybrid's rows-as-lanes window is DIAGONAL, so each
-    shard's window frame shifts by its first global row: shard d's
-    local row i reads x around global column ``bounds[d] + i``
-    (``x_off`` in ops/lane_ell.py). One shared padded x
-    (``[zeros(loc_w) | x | zeros]``) serves every shard through a
-    per-shard ``dynamic_slice`` — the TPU analog of each GPU block
-    reading its own x window through the texture cache
-    (/root/reference/src/cuda_csr.cu:145-178).
-
-    SPMD unification: each shard packs independently (its own slot
-    count, demotion and overflow decisions — all DATA), then plane
-    counts pad to the max and per-plane strip sets UNION across shards
-    so a single kernel serves all shards; a shard never reads a strip
-    it didn't pack (those lanes multiply by 0). Out-of-window/spilled
-    entries ride per-shard resident CHIPS pipelines
-    (ops/chips_tail.py) unified to one SPMD shape — row-sharding
-    shrinks each shard's tail into the resident regime, and every
-    per-shard difference is data (pad_resident_plan) — with the
-    zero-scatter panel merge into the local y; tails below ~2k entries
-    (or ones that don't fit) keep the padded XLA segment-sum.
-    ``tail_kind`` forces a route: ``"chips"`` (resident pipelines,
-    error if any shard busts the caps), ``"chips-split"`` (the round-4
-    windowed-x + popularity-split plans, even when the resident route
-    would fit — the webbase-class path), or ``"auto"``.
-    """
-    import jax
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from spmv_scpa_tpu.formats.panel_ell import BC
-    from spmv_scpa_tpu.ops import lane_ell as LE
-
-    if dtype is None:
-        dtype = jnp.float32
-    if mesh is None:
-        mesh = make_mesh(n_shards)
-    axis = mesh.axis_names[0]
-    n_dev = mesh.devices.size
-    if interpret is None:
-        interpret = LE._auto_interpret()
-
-    # shared window width from the GLOBAL diagonal frame (per-shard
-    # "auto" would disagree; the frames coincide because x_off shifts
-    # both rows and the window together)
-    if loc_w == "auto":
-        loc_w = (LE._auto_loc_w(A.row_ids().astype(np.int64),
-                                A.ja.astype(np.int64))
-                 if A.nnz else 128)
-
-    bounds, h_rows = plan_row_shards(A, n_dev)
-    h_rows = max(h_rows, BC)
-    cores = []
-    for d in range(n_dev):
-        Sh = A.slice_rows(int(bounds[d]), int(bounds[d + 1]))
-        Sh.m = h_rows          # uniform height (trailing rows empty)
-        Sh.irp = np.concatenate(
-            [Sh.irp, np.full(h_rows + 1 - Sh.irp.shape[0], Sh.irp[-1],
-                             Sh.irp.dtype)])
-        cores.append(LE.prepare_lane_ell_hybrid(
-            Sh, dtype=dtype, chunk=chunk, loc_w=loc_w, slots=slots,
-            hot_k=0, ext=ext, ext_windowed=False, strip_cov=strip_cov,
-            x_off=int(bounds[d]), core_only=True))
-
-    c0 = cores[0]
-    steps, S, G_pad, P_pad = c0.steps, c0.S, c0.G_pad, c0.P_pad
-    assert all(c.steps == steps and c.S == S for c in cores)
-    QT = max(c.QT for c in cores)
-    chunk = c0.chunk
-
-    # pad planes to the shared QT; union strip sets per plane
-    used_u: list[set] = [set() for _ in range(QT)]
-    vals_l, idx_l = [], []
-    for c in cores:
-        v = c.vals_a.reshape(steps, c.QT, chunk, BC)
-        ix = c.idx_a.reshape(steps, c.QT, chunk, BC)
-        if c.QT < QT:
-            padq = ((0, 0), (0, QT - c.QT), (0, 0), (0, 0))
-            v = np.pad(v, padq)
-            ix = np.pad(ix, padq)
-        vals_l.append(v)
-        idx_l.append(ix)
-        for q, ws in enumerate(c.used):
-            used_u[q].update(ws)
-    sets = [tuple(sorted(u)) for u in used_u]
-
-    # ---- idx8 plane partition (ops/lane_ell.py idx8, distributed) ----
-    # Same byte cut as single-chip, applied on the UNION strip sets
-    # (the kernel is one SPMD program): planes whose union has <= 2
-    # strips lead and ride an int8 stream with POSITIONAL strip bits;
-    # cores pack absolute int16, translated here per shard. Padding
-    # zeros translate safely (strip 0 is position 0 when present).
-    n8 = 0
-    if idx8:
-        order, sets, n8, second8 = LE.idx8_partition(sets, chunk)
-        vals_l = [v[:, order] for v in vals_l]
-        idx_l = [ix[:, order] for ix in idx_l]
-    used_t = tuple(sets)
-    n16 = QT - n8
-    idx8_l, idx16_l = [], []
-    if n8:
-        for ix in idx_l:
-            idx8_l.append(LE.idx8_encode(
-                ix[:, :n8], second8[None, :, None, None])
-                .reshape(-1, BC))
-            idx16_l.append(ix[:, n8:].reshape(-1, BC))
-    else:
-        idx16_l = [ix.reshape(-1, BC) for ix in idx_l]
-    vals_l = [v.reshape(-1, BC) for v in vals_l]
-
-    # ---- distributed ext panels (ops/ext_gather.py) ------------------
-    # Each shard plans its own two-stage gather for out-of-window
-    # entries (scattered regime — the single-chip amazon plan absorbs
-    # 87% of a 183k-entry tail this way); every per-shard difference
-    # is DATA once the stage shapes unify: stage-1 groups pad to the
-    # max (padding groups read x block 0 into hot rows no p2
-    # references), the stage-2 resident reduce takes the unified hot
-    # height ng_u*8, and p2/l2 are (G_pad, BC) already. Shards whose
-    # plan came back None simply have no idx lanes pointing at the ext
-    # strip — their (garbage-valued) ext panels are never selected.
-    # Windowed stage-2 is disallowed (r_hot is program structure);
-    # row-sharding shrinks per-shard hot regions like the chips tail.
-    from spmv_scpa_tpu.ops import ext_gather
-    use_ext_d = any(c.ext_ng for c in cores)
-    n_ext_args = 0
-    if use_ext_d:
-        ng_u = max(c.ext_ng for c in cores)
-        n1p_u = max(max(c.ext_n1p for c in cores), 1)
-        n1e = n1p_u * ext_gather.R_PANELS * BC
-        G2e = -(-G_pad // 8) * 8     # ranked gather emits 8-group blocks
-        eb_l, ep1_l, el1_l, ep2_l, el2_l = [], [], [], [], []
-        for c in cores:
-            ng = c.ext_ng
-            b = np.zeros(ng_u, np.int32)
-            p1 = np.zeros((ng_u * 8, BC), np.int32)
-            l1 = np.zeros((ng_u * 8, BC), np.int32)
-            p2 = np.zeros((G2e, BC), np.int32)
-            l2 = np.zeros((G2e, BC), np.int32)
-            if ng:
-                b[:ng] = c.ext_base
-                p1[:ng * 8] = c.ext_p1
-                l1[:ng * 8] = c.ext_l1
-                p2[:G_pad] = c.ext_p2
-                l2[:G_pad] = c.ext_l2
-            eb_l.append(b)
-            ep1_l.append(p1)
-            el1_l.append(l1)
-            ep2_l.append(p2)
-            el2_l.append(l2)
-        s1e = ext_gather.make_sorted_gather(
-            ng_u, n1p_u, ext_gather.R_PANELS, dtype, interpret)
-        s2e = ext_gather.make_ranked_gather(ng_u * 8, G2e, dtype,
-                                            interpret)
-        n_ext_args = 5
-
-    # Tail route. Big tails (scattered matrices) ride per-shard
-    # resident CHIPS pipelines unified into one SPMD shape
-    # (_plan_sharded_chips); small ones keep the padded XLA
-    # segment-sum (global columns; x replicated), whose fixed cost is
-    # negligible below a few k entries.
-    tail_nnz_tot = int(sum(c.trows.size for c in cores))
-    cplans = None
-    if tail_kind in ("auto", "chips", "chips-split") and tail_nnz_tot >= (
-            2048 if tail_kind == "auto" else 1):
-        cplans = _plan_sharded_chips(
-            cores, h_rows, A.n, split_only=(tail_kind == "chips-split"))
-    if tail_kind in ("chips", "chips-split") and cplans is None:
-        raise ValueError(
-            f"tail_kind={tail_kind!r} forced but the tail cannot ride "
-            f"the per-shard pipeline (tail_nnz={tail_nnz_tot}: empty, "
-            "or a shard busts the resident-hot/VPU budgets)")
-    use_chips = cplans is not None
-    if not use_chips:
-        t_max = max(1, max(c.trows.size for c in cores))
-        seg_a = np.full((n_dev, t_max), h_rows, np.int32)  # dump seg
-        tc_a = np.zeros((n_dev, t_max), np.int32)
-        tv_a = np.zeros((n_dev, t_max), np.float32)
-        for d, c in enumerate(cores):
-            k = int(c.trows.size)
-            seg_a[d, :k] = c.trows
-            tc_a[d, :k] = c.tcols
-            tv_a[d, :k] = c.tvals
-
-    kernel = LE._lane_ell_kernel(chunk, QT, S, P_pad, used_t,
-                                 ext_w=(S if use_ext_d else -1),
-                                 n8=n8)
-    slot_b = 4 * QT + 1 * n8 + 2 * n16
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.VMEM),
-        pl.BlockSpec((QT * chunk, BC), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    if n8:
-        in_specs.append(pl.BlockSpec((n8 * chunk, BC),
-                                     lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-    if n16 or not n8:
-        in_specs.append(pl.BlockSpec(((n16 if n8 else QT) * chunk, BC),
-                                     lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-    NI = (1 if n8 else 0) + (1 if (n16 or not n8) else 0)
-    if use_ext_d:                # per-group ext panels, step-aligned
-        in_specs.append(pl.BlockSpec((chunk, BC), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(steps,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((chunk, BC), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((chunk + S, BC), dtype)],
-    )
-    x_bytes = P_pad * BC * jnp.dtype(dtype).itemsize
-    call = pl.pallas_call(
-        kernel, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((G_pad, BC), dtype),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=min(
-                2 * x_bytes + 2 * G_pad * BC * 4
-                + 4 * chunk * BC * slot_b
-                + (chunk + S) * BC * 4 + chunk * BC * 4 * 2
-                + (chunk * BC * 8 if use_ext_d else 0)
-                + (8 << 20), 110 << 20)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * steps * QT * chunk * BC,
-            bytes_accessed=int(steps * chunk * BC * slot_b + x_bytes
-                               + (G_pad * BC * 4 if use_ext_d else 0)),
-            transcendentals=0),
-        interpret=interpret,
-    )
-
-    NL = max(n1e if use_ext_d else 0, 1)
-
-    def gframe(xpad, L):
-        """GLOBAL x frame recovered from the replicated xpad — pure
-        local VPU work, no extra mesh traffic. One build serves both
-        the ext and chips stage-1 gathers (sliced to each length)."""
-        f = jnp.zeros((NL,), dtype).at[:A.n].set(
-            jax.lax.slice(xpad, (loc_w,), (loc_w + A.n,)))
-        return f[:L]
-
-    def core_y(xpad, vals, idxs, r0, eargs):
-        xs = jax.lax.dynamic_slice(xpad, (r0[0, 0],), (xw,))
-        iblk = tuple(i[0] for i in idxs)
-        if use_ext_d:
-            eb, ep1, el1, ep2, el2 = eargs
-            x1 = gframe(xpad, n1e)
-            hot = s1e(eb[0], x1.reshape(-1, BC), ep1[0], el1[0])
-            extp = s2e(hot, ep2[0], el2[0])[:G_pad]
-            y = call(xs.reshape(P_pad, BC), vals[0], *iblk, extp)
-        else:
-            y = call(xs.reshape(P_pad, BC), vals[0], *iblk)
-        return y.reshape(-1)[:h_rows]
-
-    shard = NamedSharding(mesh, P(axis))
-    r0_a = bounds[:-1].astype(np.int32).reshape(n_dev, 1)
-    xw = P_pad * BC
-    stack_np = [(np.stack(vals_l), dtype)]
-    if n8:
-        stack_np.append((np.stack(idx8_l), jnp.int8))
-    if n16 or not n8:
-        stack_np.append((np.stack(idx16_l), jnp.int16))
-    stack_np.append((r0_a, jnp.int32))
-    if use_ext_d:
-        stack_np += [(np.stack(eb_l), jnp.int32),
-                     (np.stack(ep1_l), jnp.int32),
-                     (np.stack(el1_l), jnp.int32),
-                     (np.stack(ep2_l), jnp.int32),
-                     (np.stack(el2_l), jnp.int32)]
-
-    if use_chips:
-        from spmv_scpa_tpu.ops import chips_tail as CT
-        from spmv_scpa_tpu.ops import ext_gather
-        from spmv_scpa_tpu.ops.segsum_kernel import make_window_segsum
-
-        p0 = cplans[0]
-        NH = p0.NH
-        split_mode = isinstance(p0, CT.SplitChipsPlan)
-        # zero-scatter merge of heavy-row sums into the dense local y:
-        # per-shard host tables (chips_tail.merge_tables), ONE apply
-        # program (shapes are NH/G_pad-unified); scatter fallback
-        # otherwise
-        mtabs = [CT.merge_tables(p.heavy_ids, h_rows, G_pad)
-                 for p in cplans]
-        use_merge = all(t is not None for t in mtabs)
-        apply_m = CT.make_merge_apply(NH, h_rows, G_pad, dtype,
-                                      interpret, use_merge)
-        mt_np = ([(np.stack([t[0] for t in mtabs]), jnp.int32),
-                  (np.stack([t[1] for t in mtabs]), jnp.int32)]
-                 if use_merge else [])
-
-        if split_mode:
-            # Round-4 split tails (webbase-class shards): the stream
-            # programs come from shard 0's padded plan; every other
-            # shard ships the same-shaped tables (chips_tail
-            # .pad_split_plan) through the stacked args.
-            c_raw, args0, _ = CT._prepare_chips_split(
-                p0, A.n, dtype, interpret)
-            n_targs = len(args0)
-            for i, hosts in enumerate(zip(*(
-                    CT.split_plan_host_args(p, dtype)
-                    for p in cplans))):
-                st = np.stack(hosts)
-                assert st.shape[1:] == args0[i].shape, \
-                    (i, st.shape, args0[i].shape)
-                stack_np.append((st, args0[i].dtype))
-            stack_np += mt_np
-
-            def local(xpad, vals, *rest):
-                idxs, r0 = rest[:NI], rest[NI]
-                rest = rest[NI + 1:]
-                eargs, targs = rest[:n_ext_args], rest[n_ext_args:]
-                ctail, mt = targs[:n_targs], targs[n_targs:]
-                y = core_y(xpad, vals, idxs, r0, eargs)
-                xg = jax.lax.slice(xpad, (loc_w,), (loc_w + A.n,))
-                ys, hid = c_raw(xg, *(t[0] for t in ctail))
-                if use_merge:
-                    return apply_m(y, ys, *(t[0] for t in mt))[None, :]
-                return apply_m(y, ys, hid)[None, :]
-        else:
-            E8 = p0.E8
-            s1c = ext_gather.make_sorted_gather(
-                p0.n_groups, p0.n1p_blocks, p0.R, dtype, interpret)
-            s2c = ext_gather.make_ranked_gather(p0.H, E8, dtype,
-                                                interpret)
-            seg_fn, _ = make_window_segsum(
-                win_of_step=p0.win_of_step, num_windows=p0.num_windows,
-                h=p0.h, rows_per_step=p0.rows_per_step, nq=BC,
-                total_tile_rows=E8, dtype=dtype, interpret=interpret)
-            n1 = p0.n1p_blocks * p0.R * BC
-            NL = max(NL, n1)     # the shared gframe must cover it
-            stack_np += [
-                (np.stack([p.base for p in cplans]), jnp.int32),
-                (np.stack([p.p1 for p in cplans]), jnp.int32),
-                (np.stack([p.l1 for p in cplans]), jnp.int32),
-                (np.stack([p.p2 for p in cplans]), jnp.int32),
-                (np.stack([p.l2 for p in cplans]), jnp.int32),
-                (np.stack([p.vals for p in cplans]), dtype),
-                (np.stack([p.rbl for p in cplans]), jnp.int32),
-                (np.stack([p.win_of_step for p in cplans]), jnp.int32)]
-            stack_np += mt_np
-            if not use_merge:
-                stack_np.append(
-                    (np.stack([p.heavy_ids for p in cplans]),
-                     jnp.int32))
-
-            def local(xpad, vals, *rest):
-                idxs, r0 = rest[:NI], rest[NI]
-                rest = rest[NI + 1:]
-                eargs, targs = rest[:n_ext_args], rest[n_ext_args:]
-                (cb, cp1, cl1, cp2, cl2, cv, crbl, cwin), mt = \
-                    targs[:8], targs[8:]
-                y = core_y(xpad, vals, idxs, r0, eargs)
-                x1 = gframe(xpad, n1)
-                hot = s1c(cb[0], x1.reshape(-1, BC), cp1[0], cl1[0])
-                xg = s2c(hot, cp2[0], cl2[0])
-                ys = seg_fn(cv[0] * xg, crbl[0],
-                            cwin[0]).reshape(-1)[:NH]
-                return apply_m(y, ys, *(t[0] for t in mt))[None, :]
-    else:
-        stack_np += [(seg_a, jnp.int32), (tc_a, jnp.int32),
-                     (tv_a, dtype)]
-
-        def local(xpad, vals, *rest):
-            idxs, r0 = rest[:NI], rest[NI]
-            rest = rest[NI + 1:]
-            eargs, (seg, tc, tv) = rest[:n_ext_args], rest[n_ext_args:]
-            y = core_y(xpad, vals, idxs, r0, eargs)
-            yt = jax.ops.segment_sum(
-                tv[0] * jnp.take(xpad, tc[0] + loc_w), seg[0],
-                num_segments=h_rows + 1, indices_are_sorted=True)
-            return (y + yt[:h_rows])[None, :]
-
-    stack = [jax.device_put(jnp.asarray(a, t), shard)
-             for a, t in stack_np]
-    mapped = shard_map(local, mesh=mesh,
-                       in_specs=(P(),)
-                       + tuple(P(axis) for _ in stack),
-                       out_specs=P(axis), check_vma=False)
-
-    m = A.m
-
-    def raw_full(x, *args_stacked):
-        xf = x.astype(dtype)
-        xpad = jnp.concatenate(
-            [jnp.zeros(loc_w, dtype), xf, jnp.zeros(xw, dtype)])
-        y_pad = mapped(xpad, *args_stacked)          # (n_dev, h_rows)
-        return _unpad_rows(y_pad, bounds, m)
-
-    jitted = jax.jit(raw_full)
-
-    def fn(x):
-        return jitted(x, *stack)
-
-    out = RowShardedSpmv(mesh=mesh, fn=fn, m=m, n=A.n, nnz=A.nnz,
-                         bounds=bounds,
-                         shard_nnz=np.diff(A.irp[bounds].astype(np.int64)))
-    out.raw = raw_full
-    out.args = tuple(stack)
-    out.meta = {"slots": QT, "loc_w": loc_w, "chunk": chunk,
-                "tail_nnz": tail_nnz_tot,
-                "tail_kind": (("chips-split" if split_mode else "chips")
-                              if use_chips else "xla"),
-                "panel_merge": bool(use_chips and use_merge),
-                "strips": S, "idx8_planes": n8,
-                "ext": use_ext_d,
-                "ext_groups": (ng_u if use_ext_d else 0),
-                "ext_n_out": int(sum(c.ext_n_out for c in cores)),
-                "demoted": int(sum(c.n_demoted for c in cores)),
-                "relocated": int(sum(c.n_reloc for c in cores))}
-    return out
-
-
-def prepare_row_sharded_pell(A: CSR, mesh=None, n_shards: int | None = None,
-                             quantum: int | str = "auto",
-                             window_h: int | str = "auto",
-                             chunk: int | str = "auto", dtype=None,
-                             panel_w: int | str = "auto",
-                             row_sort: bool | str = "auto",
-                             span_max: int = 8,
-                             interpret: bool | None = None):
-    """Distributed SpMV with the Pallas PELL kernel as the local
-    compute (the production path: XLA gather/scatter are near-scalar
-    on TPU, so the plain segment-sum local kernel of
-    ``prepare_row_sharded`` is only suitable for CPU meshes).
-
-    Layout: A row-sharded by the nnz-balanced planner, every shard
-    padded to the same row count and tile count (SPMD needs identical
-    local shapes); x replicated (the all-gather over ICI happens when
-    the sharded fn consumes the replicated operand); y row-sharded.
-
-    Tuning: the single-chip auto heuristics (quantum / window_h /
-    panel_w / row_sort / chunk cap — ops/pallas_kernels.py:
-    auto_pell_params) are resolved ONCE from the full matrix and
-    applied to every shard, so a mesh-size-1 run packs exactly like
-    single-chip ``pallas-pell`` (VERDICT r2 item 3: the round-2
-    hardcoded quantum=16/wh=128/chunk=32 ran 4.3x slower than
-    single-chip on scattered matrices). Static tuning MUST be uniform
-    across shards — one SPMD program — hence global, not per-shard,
-    resolution; per-shard row_sort permutations are data (stacked
-    shard_map arguments), not program structure.
-    """
-    import jax
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from spmv_scpa_tpu.formats.panel_ell import BR, csr_to_pell
-    from spmv_scpa_tpu.ops import pallas_kernels as PK
-
-    if dtype is None:
-        dtype = jnp.float32
-    if mesh is None:
-        mesh = make_mesh(n_shards)
-    axis = mesh.axis_names[0]
-    n_dev = mesh.devices.size
-    if interpret is None:
-        interpret = PK._auto_interpret()
-
-    auto = PK.auto_pell_params(A, quantum=quantum, window_h=window_h,
-                               panel_w=panel_w, row_sort=row_sort,
-                               chunk=chunk)
-    quantum, pw = auto["quantum"], auto["panel_w"]
-    row_sort, chunk = auto["row_sort"], auto["chunk"]
-
-    bounds, h_rows = plan_row_shards(A, n_dev)
-    h_rows = max(h_rows, BR)
-    scsrs = []
-    bsrcs = []
-    for d in range(n_dev):
-        S = A.slice_rows(int(bounds[d]), int(bounds[d + 1]))
-        S.m = h_rows  # uniform shard height (trailing rows empty)
-        S.irp = np.concatenate(
-            [S.irp, np.full(h_rows + 1 - S.irp.shape[0], S.irp[-1],
-                            S.irp.dtype)])
-        if row_sort:
-            # per-shard rank-sort clustering; m_pad is uniform because
-            # h_rows is, so the un-permute kernel is shape-identical
-            sigma, bsrc = PK._rank_sort_sigma(S)
-            bsrcs.append(bsrc)
-            S = CSR.from_coo(S.name, bsrc.shape[0] * BR, S.n,
-                             sigma[S.row_ids()], S.ja, S.as_)
-        scsrs.append(S)
-    m_local = scsrs[0].m                 # h_rows, or row_sort-padded
-
-    # Joint window_h escalation: every shard must keep its epilogue
-    # span bounded at the SHARED window_h (coarser windows → smaller
-    # span); if escalation runs out, accept the last span — the fused
-    # kernel handles any W, at W-proportional epilogue cost.
-    wh0 = auto["window_h"]
-    mb_local = (m_local + BR - 1) // BR
-    for mult in (1, 2, 4, 0):
-        wh = mb_local if mult == 0 else min(wh0 * mult, mb_local)
-        wh = max(wh, 1)
-        shards = [csr_to_pell(S, quantum=quantum, window_h=wh,
-                              chunk_align=1, min_chunk_align=1,
-                              panel_w=pw)
-                  for S in scsrs]
-        w_max = max(PK._span_of(p.window, chunk) for p in shards)
-        if w_max <= span_max or wh >= mb_local:
-            break
-    use_wh = wh
-
-    # One shared SPMD program: pin the padded tile count and the
-    # epilogue's one-hot span to the max over shards, so every shard
-    # compiles to the identical fused kernel and its per-shard
-    # base/rbl/mask arrays travel as stacked shard_map ARGUMENTS.
-    # (Round 1 baked win_of_step in as a Python constant, which forced
-    # every shard to a single epilogue window — VERDICT r1 weak 6.)
-    t_max = max(-(-p.num_tiles // chunk) * chunk for p in shards)
-
-    raws = []
-    for p in shards:
-        raw, args = PK._make_fused_spmv(
-            name="dist-pell", m=m_local, n=A.n, vals=p.vals, lcol=p.lcol,
-            panel=p.panel, rbl=p.rbl, window=p.window,
-            window_h=use_wh, dtype=dtype, chunk=chunk,
-            interpret=interpret, force_span=w_max, force_tiles=t_max,
-            panel_w=p.panel_w, precision_passes=2, epilogue_passes=2)
-        raws.append((raw, args))
-
-    # one shared program: all shards use raws[0].raw with their own args
-    raw0 = raws[0][0]
-    stack = [jnp.stack([jnp.asarray(r[1][i]) for r in raws])
-             for i in range(len(raws[0][1]))]
-    if row_sort:
-        # per-lane block un-permutation: one shared Pallas pass, the
-        # per-shard bsrc tables stacked like any other shard data
-        unperm_call, _ = PK._make_unpermute(bsrcs[0], dtype, interpret)
-        mbp = bsrcs[0].shape[0]
-        stack.append(jnp.stack([jnp.asarray(b) for b in bsrcs]))
-    shard = NamedSharding(mesh, P(axis))
-    stack = [jax.device_put(a, shard) for a in stack]
-
-    def local(x, *args_stacked):
-        local_args = [a[0] for a in args_stacked]
-        if row_sort:
-            *local_args, bsrc_a = local_args
-            y = raw0(x, *local_args)          # (m_local,) sorted order
-            y = unperm_call(y.reshape(mbp, BR), bsrc_a).reshape(-1)
-        else:
-            y = raw0(x, *local_args)          # (h_rows,)
-        return y[None, :h_rows]
-
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes
-    # annotation, which the checker would otherwise reject
-    mapped = shard_map(local, mesh=mesh,
-                       in_specs=(P(),) + tuple(P(axis) for _ in stack),
-                       out_specs=P(axis), check_vma=False)
-
-    m = A.m
-
-    def raw_full(x, *args_stacked):
-        y_pad = mapped(x.astype(dtype), *args_stacked)   # (n_dev, h_rows)
-        return _unpad_rows(y_pad, bounds, m)
-
-    jitted = jax.jit(raw_full)
-
-    def fn(x):
-        return jitted(x, *stack)
-
-    out = RowShardedSpmv(mesh=mesh, fn=fn, m=m, n=A.n, nnz=A.nnz,
-                         bounds=bounds,
-                         shard_nnz=np.diff(A.irp[bounds].astype(np.int64)))
-    out.raw = raw_full
-    out.args = tuple(stack)
     return out

@@ -237,3 +237,8 @@ ARCHETYPES = {
     "webbase": webbase_csr,
     "amazon": amazon_csr,
 }
+
+# The flagship: the ML_Laplace-scale stand-in (377k rows, ~22.6M nnz,
+# ~60 nnz/row in repeated contiguous runs; ~270 MB of f32 CSR, several
+# times a GPU's L2), as a ``synth:`` spec for the CLI's parser.
+FLAGSHIP_SPEC = "synth:stencil:m=377000,points=6,run_len=12,bandwidth=500,seed=3"

@@ -1,5 +1,5 @@
 """Distributed row-sharded SpMV on the 8-device virtual CPU mesh
-(SURVEY.md section 4: the standard JAX answer to testing multi-chip
+(SURVEY.md section 4: the standard JAX answer to testing multi-device
 paths without hardware)."""
 
 import numpy as np
@@ -53,284 +53,22 @@ def test_plan_row_shards_covers_all_rows():
     assert h >= max(np.diff(bounds))
 
 
-def test_row_sharded_pell_matches_oracle():
-    """Distributed SpMV with the Pallas PELL local kernel on the
-    virtual CPU mesh (interpret mode)."""
-    A = synth.banded_csr(400, row_nnz=9, bandwidth=60, runs=3, seed=8)
-    from spmv_scpa_tpu.parallel.distributed import prepare_row_sharded_pell
-    dist = prepare_row_sharded_pell(A, mesh=_cpu_mesh(4), window_h=128)
+def test_four_card_phase_on_virtual_devices():
+    """chip_smoke.py's four-card phase, run on 4 virtual CPU devices:
+    shards on 4 distinct devices, agreement with the oracle and with
+    the same path on 1 device."""
+    import importlib.util
+    import os
+
+    import jax
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    A = synth.stencil_csr(3000, points=6, run_len=12, bandwidth=200)
     x = make_x(A.n)
-    got = np.asarray(dist.fn(x), dtype=np.float64)
-    validate_result(spmv_oracle(A, x), got, what="dist-pell")
-
-
-def test_row_sharded_pell_multi_window_shards():
-    """window_h SMALLER than a shard's row blocks: each shard runs a
-    multi-window fused epilogue with its own base/mask arrays stacked
-    through the single SPMD program — the round-1 one-window-per-shard
-    restriction (VERDICT r1 weak 6) is gone."""
-    A = synth.banded_csr(2048, row_nnz=9, bandwidth=60, runs=3, seed=9)
-    from spmv_scpa_tpu.parallel.distributed import prepare_row_sharded_pell
-    # 4 shards x 512 rows = 64 row blocks per shard >> window_h=8
-    dist = prepare_row_sharded_pell(A, mesh=_cpu_mesh(4), window_h=8)
-    x = make_x(A.n)
-    got = np.asarray(dist.fn(x), dtype=np.float64)
-    validate_result(spmv_oracle(A, x), got, what="dist-pell-multiwin")
-
-
-def test_row_sharded_pell_auto_rowsort():
-    """Scattered matrix through the distributed path: the single-chip
-    auto heuristics (row_sort clustering, q=8, superpanels) must be
-    inherited per shard (VERDICT r2 item 3) and still validate."""
-    A = synth.powerlaw_csr(1200, 1200, seed=21)
-    from spmv_scpa_tpu.ops.pallas_kernels import auto_pell_params
-    from spmv_scpa_tpu.parallel.distributed import prepare_row_sharded_pell
-    auto = auto_pell_params(A)
-    assert auto["row_sort"]  # thin buckets -> clustering engages
-    dist = prepare_row_sharded_pell(A, mesh=_cpu_mesh(4))
-    x = make_x(A.n)
-    got = np.asarray(dist.fn(x), dtype=np.float64)
-    validate_result(spmv_oracle(A, x), got, what="dist-pell-rowsort")
-
-
-def test_row_sharded_pell_mesh1_packs_like_single_chip():
-    """mesh=1 must inherit the exact single-chip auto tuning — the
-    round-2 hardcoded config cost 4.3x on scattered matrices."""
-    A = synth.banded_csr(512, row_nnz=9, bandwidth=60, seed=13)
-    from spmv_scpa_tpu.ops.pallas_kernels import auto_pell_params
-    from spmv_scpa_tpu.parallel.distributed import prepare_row_sharded_pell
-    auto = auto_pell_params(A)
-    dist = prepare_row_sharded_pell(A, mesh=_cpu_mesh(1))
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-pell-mesh1")
-    assert auto["quantum"] == 16 and auto["window_h"] == 48
-
-
-def test_row_sharded_hybrid_matches_oracle():
-    """The flagship lane-ELL hybrid as the distributed local kernel:
-    per-shard diagonal window frames (x_off) over one shared padded x,
-    plane counts padded + strip sets unioned into one SPMD program."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.banded_csr(1200, row_nnz=11, bandwidth=90, seed=21)
-    for n_dev in (1, 3, 8):
-        dist = prepare_row_sharded_hybrid(
-            A, mesh=_cpu_mesh(n_dev), interpret=True)
-        x = make_x(A.n)
-        got = np.asarray(dist.fn(x), dtype=np.float64)
-        validate_result(spmv_oracle(A, x), got,
-                        what=f"dist-hybrid n={n_dev}")
-
-
-def test_row_sharded_hybrid_tail_and_imbalance():
-    """Scattered entries ride the per-shard padded XLA tail; skewed
-    rows exercise unequal per-shard plane counts (QT padding)."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.powerlaw_csr(900, 900, seed=22)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(4),
-                                      interpret=True)
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid powerlaw")
-    assert dist.meta["tail_nnz"] > 0
-
-
-def test_row_sharded_hybrid_empty_shards():
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.diag_csr(5)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(8),
-                                      interpret=True)
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid tiny")
-
-
-def test_row_sharded_hybrid_chips_tail():
-    """Big scattered tails ride per-shard resident CHIPS pipelines
-    unified into one SPMD shape (pad_resident_plan): webbase-class
-    matrices whose GLOBAL tail busts the resident caps fit per shard,
-    and the zero-scatter panel merge lands the heavy-row sums."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.webbase_csr(m=20000, seed=5)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(8),
-                                      interpret=True)
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid webbase chips")
-    assert dist.meta["tail_kind"] == "chips"
-    assert dist.meta["panel_merge"]
-
-
-def test_row_sharded_hybrid_chips_forced_small():
-    """tail_kind='chips' forces the route below the auto threshold;
-    zero-tail shards get the dummy zero-contribution plan, and padded
-    shapes (groups / steps / windows / NH) differ across shards."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.amazon_csr(m=6000, seed=30)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(4),
-                                      interpret=True,
-                                      tail_kind="chips")
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid amazon chips forced")
-    assert dist.meta["tail_kind"] == "chips"
-
-
-def test_row_sharded_hybrid_tail_kind_xla_forced():
-    """tail_kind='xla' keeps the segment-sum tail even for big tails
-    (the escape hatch); results stay exact."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.amazon_csr(m=8000, seed=30)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(8),
-                                      interpret=True, tail_kind="xla")
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid amazon xla forced")
-    assert dist.meta["tail_kind"] == "xla"
-
-
-def test_row_sharded_hybrid_chips_scatter_fallback(monkeypatch):
-    """When the panel-merge tables bust the budget, the per-shard
-    scatter lands the heavy-row sums (one program, hid as data)."""
-    from spmv_scpa_tpu.ops import chips_tail
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    monkeypatch.setattr(chips_tail, "merge_tables",
-                        lambda *a, **k: None)
-    A = synth.amazon_csr(m=6000, seed=30)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(4),
-                                      interpret=True,
-                                      tail_kind="chips")
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid chips scatter fallback")
-    assert dist.meta["tail_kind"] == "chips"
-    assert not dist.meta["panel_merge"]
-
-
-def test_row_sharded_hybrid_chips_forced_unplannable_raises():
-    """tail_kind='chips' must not silently run the XLA tail: an empty
-    tail (or a shard busting the budgets) raises."""
-    import pytest as _pytest
-
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.diag_csr(600)          # window covers all: empty tail
-    with _pytest.raises(ValueError, match="tail_kind='chips'"):
-        prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(2),
-                                   interpret=True, tail_kind="chips")
-
-
-def test_row_sharded_hybrid_ext_panels():
-    """Scattered out-of-window entries ride per-shard ext gather
-    pipelines (ops/ext_gather.py) unified into one SPMD program —
-    the single-chip ext absorption carried into the distributed form
-    (round-2 VERDICT item 3 extended to the hybrid flagship): without
-    it, an amazon-class tail (3-5 nnz scattered rows) lands in the
-    heavily padded chips pipeline."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.amazon_csr(40_000, seed=11)
-    x = make_x(A.n)
-    gold = spmv_oracle(A, x)
-    tails = {}
-    for n_dev in (1, 4):
-        dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(n_dev),
-                                          interpret=True)
-        validate_result(gold, np.asarray(dist.fn(x)),
-                        what=f"dist-hybrid-ext n={n_dev}")
-        assert dist.meta["ext"] and dist.meta["ext_n_out"] > 0
-        tails[n_dev] = dist.meta["tail_nnz"]
-    # ext absorbed the bulk of the out-of-window entries
-    off = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(4), ext=False,
-                                     interpret=True)
-    validate_result(gold, np.asarray(off.fn(x)),
-                    what="dist-hybrid ext=False")
-    assert not off.meta["ext"]
-    assert tails[4] < 0.25 * off.meta["tail_nnz"]
-
-
-def test_row_sharded_hybrid_ext_mixed_shards():
-    """One shard purely banded (plan_ext returns None -> zero tables),
-    others scattered: the no-ext shard's garbage-valued ext panels are
-    never selected (its idx lanes never encode the ext strip)."""
-    from spmv_scpa_tpu.formats.csr import CSR
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    B = synth.banded_csr(8000, row_nnz=8, bandwidth=64, seed=31)
-    S = synth.amazon_csr(8000, seed=32)
-    rows = np.concatenate([B.row_ids(), S.row_ids() + B.m])
-    cols = np.concatenate([B.ja, S.ja % B.n])
-    vals = np.concatenate([B.as_, S.as_])
-    A = CSR.from_coo("mixed", B.m + S.m, B.n, rows, cols, vals)
-    x = make_x(A.n)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(2),
-                                      interpret=True)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what="dist-hybrid mixed-ext")
-    assert dist.meta["ext"]
-
-
-def test_row_sharded_hybrid_idx8():
-    """idx8 in the distributed core: the int8/int16 partition runs on
-    the UNION strip sets (one SPMD program); per-shard absolute int16
-    codes translate to positional int8 after plane reordering. Keeps
-    mesh=1 packing aligned with the single-chip idx8 flagship."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    for A in (synth.banded_csr(6000, row_nnz=12, bandwidth=100, seed=2),
-              synth.amazon_csr(40_000, seed=11)):
-        x = make_x(A.n)
-        gold = spmv_oracle(A, x)
-        for n_dev in (1, 4):
-            dist = prepare_row_sharded_hybrid(
-                A, mesh=_cpu_mesh(n_dev), idx8=True, interpret=True)
-            validate_result(gold, np.asarray(dist.fn(x)),
-                            what=f"dist-idx8 {A.name} n={n_dev}")
-        assert dist.meta["idx8_planes"] > 0
-
-
-@pytest.mark.parametrize("n_dev", [1, 4])
-def test_row_sharded_hybrid_split_chips_tail(n_dev, monkeypatch):
-    """Round-4: shard tails that bust the RESIDENT caps ride unified
-    SPLIT plans (windowed-x local stream + popularity-split far/cold
-    residents, chips_tail.pad_split_plan) — the webbase-class case
-    VERDICT r3 item 4 flagged as falling back to the XLA tail. Forced
-    here by disabling the resident planner, so the split path carries
-    the whole tail at any test scale; mesh=1 is the single-chip-parity
-    configuration."""
-    from spmv_scpa_tpu.ops import chips_tail
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    monkeypatch.setattr(chips_tail, "_plan_single",
-                        lambda *a, **k: None)
-    A = synth.webbase_csr(m=20000, seed=5)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(n_dev),
-                                      interpret=True)
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what=f"dist-hybrid split-chips n={n_dev}")
-    assert dist.meta["tail_kind"] == "chips-split"
-
-
-@pytest.mark.parametrize("n_dev", [1, 4])
-def test_row_sharded_hybrid_tail_kind_chips_split_forced(n_dev):
-    """Round-5: ``tail_kind="chips-split"`` forces the split route
-    through the public API (no monkeypatch) — the same path
-    ``__graft_entry__.dryrun_multichip`` exercises for the driver."""
-    from spmv_scpa_tpu.parallel.distributed import \
-        prepare_row_sharded_hybrid
-    A = synth.webbase_csr(m=20000, seed=5)
-    dist = prepare_row_sharded_hybrid(A, mesh=_cpu_mesh(n_dev),
-                                      interpret=True,
-                                      tail_kind="chips-split")
-    x = make_x(A.n)
-    validate_result(spmv_oracle(A, x), np.asarray(dist.fn(x)),
-                    what=f"dist-hybrid forced-split n={n_dev}")
-    assert dist.meta["tail_kind"] == "chips-split"
+    smoke.phase_four_cards(A, x, spmv_oracle(A, x), "cpu",
+                           devices=jax.devices("cpu")[:4])

@@ -4,10 +4,8 @@
 import numpy as np
 import pytest
 
-from spmv_scpa_tpu.formats.bcsr import csr_to_bcsr
 from spmv_scpa_tpu.formats.csr import CSR, partition_rows_by_nnz
 from spmv_scpa_tpu.formats.ell import csr_to_ell
-from spmv_scpa_tpu.formats.panel_ell import csr_to_pell
 from spmv_scpa_tpu import testing as synth
 
 
@@ -70,62 +68,6 @@ def test_ell_uniform_roundtrip(matrices, col_major):
         np.testing.assert_allclose(dense[:A.m], A.to_dense(), err_msg=A.name)
         # all padded indices are in-bounds
         assert ja.min() >= 0 and ja.max() < max(A.n, 1)
-
-
-def test_bcsr_roundtrip(matrices):
-    for A in matrices:
-        B = csr_to_bcsr(A)
-        np.testing.assert_allclose(B.to_dense(), A.to_dense(),
-                                   err_msg=A.name)
-        assert 0 < B.fill <= 1 or A.nnz == 0
-
-
-def test_pell_roundtrip(matrices):
-    for A in matrices:
-        P = csr_to_pell(A)
-        np.testing.assert_allclose(P.to_dense(), A.to_dense(),
-                                   err_msg=A.name)
-        assert (P.lcol >= 0).all() and (P.lcol < 128).all()
-        assert np.all(np.diff(P.rowblk) >= 0)  # sorted for segsum epilogue
-
-
-def test_pell_spill_long_row():
-    # a (row, panel) bucket with > quantum nonzeros must spill into
-    # consecutive quanta/tiles; padding tiles carry no values
-    m, n = 8, 128
-    dense = np.zeros((m, n))
-    dense[3, :] = np.arange(1, n + 1)      # full row in one panel
-    A = CSR.from_dense("spill", dense)
-    P = csr_to_pell(A)
-    np.testing.assert_allclose(P.to_dense(), dense)
-    used = int((P.vals != 0).any(axis=(1, 2)).sum())
-    assert used == 1                        # content fits in one tile
-    assert P.num_tiles % P.chunk_align == 0
-
-    dense2 = np.zeros((8, 256))
-    dense2[0, :200] = 1.0                   # spans 2 panels
-    A2 = CSR.from_dense("span", dense2)
-    P2 = csr_to_pell(A2)
-    assert int((P2.vals != 0).any(axis=(1, 2)).sum()) == 2
-    np.testing.assert_allclose(P2.to_dense(), dense2)
-
-
-def test_pell_window_invariants(matrices):
-    for A in matrices:
-        P = csr_to_pell(A, quantum=32, window_h=4, chunk_align=4)
-        np.testing.assert_allclose(P.to_dense(), A.to_dense(),
-                                   err_msg=A.name)
-        # windows non-decreasing, steps window-pure
-        assert np.all(np.diff(P.window) >= 0)
-        assert P.num_tiles % P.chunk_align == 0
-        steps = P.window.reshape(-1, P.chunk_align)
-        assert (steps == steps[:, :1]).all()
-        # window-local ids consistent with global rowblk
-        real = P.rbl < P.window_h
-        np.testing.assert_array_equal(
-            P.rowblk[real],
-            P.rbl[real] + np.broadcast_to(
-                P.window[:, None] * P.window_h, P.rbl.shape)[real])
 
 
 def test_partition_rows_by_nnz():

@@ -1,11 +1,7 @@
 """Batch runner + plots smoke tests (the scripts layer)."""
 
 import os
-import subprocess
 import sys
-
-import numpy as np
-import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,14 +15,13 @@ def test_results_and_plots_end_to_end(tmp_path):
     from spmv_scpa_tpu.cli import main as cli_main
     for it in range(2):
         rc = cli_main(["-m", "synth:banded:m=96,row_nnz=5,bandwidth=16",
-                       "-o", out, "-b", "xla-csr-segsum,pallas-pell",
-                       "--chunks", "4"])
+                       "-o", out, "-b", "xla-csr-segsum,xla-ell-cm"])
         assert rc == 0
 
     import pandas as pd
     dev = pd.read_csv(os.path.join(out, "cuda.csv"))
     assert len(dev) == 4  # 2 iterations x 2 strategies
-    assert set(dev["format"]) == {"CSR", "PELL"}
+    assert set(dev["format"]) == {"CSR", "HLL"}
 
     # plots.py over the result dir
     import importlib
@@ -58,18 +53,16 @@ def test_roofline_report_math():
 
     class P:
         hbm_bytes = 1000_000_000  # 1 GB
-        nnz = 83_333_333          # ideal 6 B/nnz ~ 0.5 GB
+        nnz = 62_500_000          # ideal 8 B/nnz = 0.5 GB
 
-    R._STREAM_CACHE["bw"] = 500.0  # pretend 500 GB/s, skip the probe
-    try:
-        rep = R.roofline(P(), duration_ms=4.0, gflops=10.0)
-        assert abs(rep.t_min_ms - 2.0) < 1e-9
-        assert abs(rep.fraction - 0.5) < 1e-9
-        assert abs(rep.gflops_at_roofline - 20.0) < 1e-9
-        # ideal = nnz*6 B at 500 GB/s = ~1 ms -> fraction_ideal ~0.25
-        assert abs(rep.fraction_ideal - 0.2499999) < 1e-4
-    finally:
-        R._STREAM_CACHE.clear()
+    rep = R.roofline(P(), duration_ms=4.0, gflops=10.0, m=0,
+                     copy_bw=500.0, peak_bw=1000.0)
+    assert abs(rep.t_min_ms - 2.0) < 1e-9
+    assert abs(rep.fraction - 0.5) < 1e-9
+    assert abs(rep.fraction_peak - 0.25) < 1e-9
+    # ideal = 8 B/nnz + 4 B row pointer at 500 GB/s = ~1 ms -> ~0.25
+    assert abs(rep.fraction_ideal - 0.25) < 1e-6
+    assert R.ideal_bytes(10, 3, 40, 12) == 10 * 8 + 4 * 4 + 40 + 12
 
 
 def test_strategy_ids_cover_all_device_strategies():
@@ -83,6 +76,9 @@ def test_strategy_ids_cover_all_device_strategies():
                if get_strategy(n).backend in ("xla", "pallas")
                and n not in STRATEGY_IDS]
     assert not missing, f"strategies without kernel ids: {missing}"
+    # ids of removed strategies are never handed out again
+    assert not {4, 5, 7, 10, 11, 12, 13, 14, 15, 16} & set(
+        STRATEGY_IDS.values())
     # ids must be unique (they are the CSV series key in plots.py)
     ids = list(STRATEGY_IDS.values())
     assert len(ids) == len(set(ids))
@@ -117,76 +113,120 @@ def test_timing_guard_on_noisy_clock(monkeypatch):
     assert abs(res2.duration_ms - 0.1) < 0.02
 
 
-def test_pick_auto_routes_tiny_to_dense(monkeypatch):
-    """Launch-bound regime: sub-0.5M-dense-element matrices go to
-    xla-dense on TPU (measured: scripts/tpu_tiny_r4.py — dense wins
-    cage4/mhda416 scale, loses by olm1000 scale)."""
+def _as_gpu(monkeypatch):
+    from spmv_scpa_tpu.utils import platform
+    monkeypatch.setattr(platform, "device_info", lambda: platform.DeviceInfo(
+        "gpu", "NVIDIA H100 80GB HBM3", 1))
+
+
+def test_pick_auto_gpu_routes_even_rows_to_hell(monkeypatch):
+    """On a GPU, matrices whose 32-row slices are mostly real slots
+    (fill >= hell.MIN_FILL) and whose uniform ELL does not fit in L2
+    go to pallas-hell (L2 shrunk to nothing so small matrices stand in
+    for large ones)."""
     from spmv_scpa_tpu import testing as synth
     from spmv_scpa_tpu.ops import registry
-    from spmv_scpa_tpu.utils import platform
 
-    monkeypatch.setattr(platform, "is_tpu", lambda: True)
-    monkeypatch.setattr(registry, "is_tpu", lambda: True, raising=False)
-
-    tiny = synth.random_csr(9, density=0.6, seed=4)            # cage4
-    mid = synth.random_csr(416, density=0.05, seed=5)          # mhda416
-    big = synth.banded_csr(1000, row_nnz=4, bandwidth=6, seed=6)
-
-    assert registry.pick_auto(tiny) == "xla-dense"
-    assert registry.pick_auto(mid) == "xla-dense"
-    assert registry.pick_auto(big) != "xla-dense"
+    _as_gpu(monkeypatch)
+    monkeypatch.setattr(registry, "L2_BYTES", 0)
+    for A in (synth.stencil_csr(3000, points=6, run_len=12, bandwidth=200),
+              synth.banded_csr(4000, row_nnz=9, bandwidth=48, runs=3),
+              synth.amazon_csr(m=3000, seed=6),
+              synth.diag_csr(100)):
+        assert registry.pick_auto(A) == "pallas-hell", A.name
 
 
-def test_pick_auto_scattered_routes_to_xpose(monkeypatch):
-    """Measured round-5 rule (docs/PERF_LOG.md): short scattered rows
-    (webbase archetype: 3.1 nnz/row) -> pallas-xpose (6.21 vs hybrid
-    1.96 GF/s on chip); amazon-class (4.7 nnz/row, locality 0.5+) and
-    banded/stencil stay on pallas-hybrid; past the xpose envelope
-    (>4.1M entries, no locality) -> pallas-pell."""
+def test_pick_auto_gpu_keeps_skewed_rows_on_segsum(monkeypatch):
     from spmv_scpa_tpu import testing as synth
-    from spmv_scpa_tpu.ops import registry
-    from spmv_scpa_tpu.utils import platform
+    from spmv_scpa_tpu.formats.csr import CSR
+    from spmv_scpa_tpu.ops import hell, registry
 
-    monkeypatch.setattr(platform, "is_tpu", lambda: True)
-
-    web = synth.webbase_csr(m=120_000, seed=7)
-    # full-size: the measured archetype (4.7 nnz/row; smaller m thins
-    # the copying model below the 4-nnz/row routing threshold)
-    ama = synth.amazon_csr(m=262_000, seed=6)
-    band = synth.banded_csr(8000, row_nnz=9, bandwidth=48, seed=1)
-    power = synth.powerlaw_csr(m=100_000, n=100_000, avg_nnz=60,
-                               seed=5)      # 6M nnz > envelope
-    assert registry.pick_auto(web) == "pallas-xpose"
-    assert registry.pick_auto(ama) == "pallas-hybrid"
-    assert registry.pick_auto(band) == "pallas-hybrid"
-    assert registry.pick_auto(power) == "pallas-pell"
+    _as_gpu(monkeypatch)
+    for A in (synth.powerlaw_csr(5000, 5000, seed=5),
+              synth.webbase_csr(m=20_000, seed=7),
+              CSR.from_coo("empty", 50, 50, [], [], [])):
+        assert A.nnz == 0 or hell.hell_fill(A) < hell.MIN_FILL
+        assert registry.pick_auto(A) == "xla-csr-segsum", A.name
 
 
-def test_spmv_auto_falls_back_when_xpose_refuses(monkeypatch):
-    """pick_auto's envelope check is necessary-not-sufficient: when
-    prepare_xpose still refuses mid-plan, spmv(auto) must fall back
-    (VERDICT r4 item 7), never surface the ValueError."""
+def test_pick_auto_gpu_sends_l2_resident_even_rows_to_ell_cm(monkeypatch):
+    """A matrix with even rows whose uniform ELL fits in the H100's L2
+    goes to xla-ell-cm; one slot-row more past L2 sends it to
+    pallas-hell."""
     import numpy as np
 
     from spmv_scpa_tpu import testing as synth
+    from spmv_scpa_tpu.formats.csr import CSR
     from spmv_scpa_tpu.ops import registry
-    from spmv_scpa_tpu.ops.oracle import spmv_oracle
-    from spmv_scpa_tpu.utils.vector import make_x
 
-    A = synth.webbase_csr(m=20_000, seed=3)
-    monkeypatch.setattr(registry, "pick_auto",
-                        lambda _A: "pallas-xpose")
-    spec = registry.get_strategy("pallas-xpose")
+    _as_gpu(monkeypatch)
+    for A in (synth.banded_csr(4000, row_nnz=9, bandwidth=48, runs=3),
+              synth.amazon_csr(m=3000, seed=6)):
+        assert registry.uniform_ell_slots(A) * 8 <= registry.L2_BYTES
+        assert registry.pick_auto(A) == "xla-ell-cm", A.name
+    # diagonal: one slot per row, 8 B each; m rows fill L2 exactly
+    m = registry.L2_BYTES // 8
+    A = CSR("diag", m, m, np.arange(m + 1), np.arange(m, dtype=np.int32),
+            np.ones(m))
+    assert registry.uniform_ell_slots(A) * 8 == registry.L2_BYTES
+    assert registry.pick_auto(A) == "xla-ell-cm"
+    A = CSR("diag", m + 32, m + 32, np.arange(m + 33),
+            np.arange(m + 32, dtype=np.int32), np.ones(m + 32))
+    assert registry.pick_auto(A) == "pallas-hell"
 
-    def refuse(_A, **_kw):
-        raise ValueError("synthetic mid-plan rejection")
 
+def test_uniform_ell_slots_pads_to_the_longest_row():
+    from spmv_scpa_tpu.formats.csr import CSR
+    from spmv_scpa_tpu.formats.ell import csr_to_ell
+    from spmv_scpa_tpu.ops import registry
+    from spmv_scpa_tpu.testing import powerlaw_csr
+
+    for A in (powerlaw_csr(300, 300, seed=2),
+              CSR.from_coo("empty", 40, 4, [], [], [])):
+        U = csr_to_ell(A, slice_h=32, col_major=True,
+                       pad_mode="last").to_uniform()
+        assert registry.uniform_ell_slots(A) == U.ja.size, A.name
+
+
+def test_pick_auto_off_gpu_is_segsum():
+    """Off the GPU the Triton kernel cannot compile: auto stays on the
+    XLA path, whatever the matrix."""
+    from spmv_scpa_tpu import testing as synth
+    from spmv_scpa_tpu.ops import registry
+    A = synth.stencil_csr(3000, points=6, run_len=12, bandwidth=200)
+    assert registry.pick_auto(A) == "xla-csr-segsum"
+
+
+def test_cli_exits_nonzero_when_a_strategy_fails(tmp_path, monkeypatch):
+    """A strategy that raises (not one that refuses the matrix) fails
+    the run: the CLI still writes the other rows and exits 1."""
     import dataclasses
-    registry._REGISTRY["pallas-xpose"] = dataclasses.replace(
-        spec, prepare=refuse)
-    try:
-        x = make_x(A.n)
-        y = registry.spmv(A, x, "auto")
-        np.testing.assert_allclose(y, spmv_oracle(A, x), rtol=1e-4)
-    finally:
-        registry._REGISTRY["pallas-xpose"] = spec
+
+    from spmv_scpa_tpu.cli import main as cli_main
+    from spmv_scpa_tpu.ops import registry
+
+    spec = registry.get_strategy("xla-ell-rm")
+
+    def boom(_A, **_kw):
+        raise RuntimeError("synthetic device failure")
+
+    monkeypatch.setitem(registry._REGISTRY, "xla-ell-rm",
+                        dataclasses.replace(spec, prepare=boom))
+    argv = ["-m", "synth:banded:m=96,row_nnz=5,bandwidth=16", "-o",
+            str(tmp_path), "-b", "xla-csr-segsum,xla-ell-rm"]
+    assert cli_main(argv) == 1
+    with open(tmp_path / "cuda.csv") as f:
+        assert len(f.read().splitlines()) == 2   # header + segsum row
+
+
+def test_cli_refusal_is_not_a_failure(tmp_path):
+    """pallas-hell refusing a matrix whose rows are too uneven for its
+    slices is a refusal, not a failure: the CLI reports it, exits 0."""
+    from spmv_scpa_tpu.cli import main as cli_main
+    from spmv_scpa_tpu.ops import hell
+    from spmv_scpa_tpu.testing import powerlaw_csr
+
+    assert hell.hell_fill(powerlaw_csr(5000, 5000, seed=5)) < hell.MIN_FILL
+    argv = ["-m", "synth:powerlaw:m=5000,n=5000,seed=5", "-o",
+            str(tmp_path), "-b", "xla-csr-segsum,pallas-hell"]
+    assert cli_main(argv) == 0

@@ -11,10 +11,12 @@ from spmv_scpa_tpu.utils.validation import validate_result
 from spmv_scpa_tpu.utils.vector import make_x
 
 
-# spmm-only strategies take (n, c) inputs — tested separately
+# spmm-only strategies take (n, c) inputs, and the Pallas kernel needs
+# interpret=True off the GPU — both are tested separately
 ALL_STRATEGIES = sorted(
-    s for s in set(list_strategies()) if not get_strategy(s).spmm
-    or s == "xla-csr-segsum")
+    s for s in set(list_strategies())
+    if (not get_strategy(s).spmm or s == "xla-csr-segsum")
+    and get_strategy(s).backend != "pallas")
 
 
 @pytest.mark.parametrize("strategy", ALL_STRATEGIES)
@@ -28,20 +30,6 @@ def test_strategy_matches_oracle(matrices, strategy):
         validate_result(expected, got, what=f"{strategy} on {A.name}")
 
 
-@pytest.mark.parametrize("strategy", ["pallas-pell", "pallas-bcsr"])
-def test_pallas_chunk_sweep(strategy):
-    """chunk (tiles per grid step) is the warps_per_block-style tuning
-    axis (main.c:265-269) — all settings must agree with the oracle."""
-    from spmv_scpa_tpu import testing as synth
-    A = synth.banded_csr(200, row_nnz=11, bandwidth=48, seed=5)
-    x = make_x(A.n)
-    expected = spmv_oracle(A, x)
-    for chunk in (1, 4, 16):
-        prep = get_strategy(strategy).prepare(A, chunk=chunk)
-        validate_result(expected, np.asarray(prep.fn(x)),
-                        what=f"{strategy} chunk={chunk}")
-
-
 def test_empty_rows_and_cols():
     from spmv_scpa_tpu.formats.csr import CSR
     dense = np.zeros((10, 7))
@@ -53,82 +41,25 @@ def test_empty_rows_and_cols():
     for s in ALL_STRATEGIES:
         got = np.asarray(get_strategy(s).prepare(A).fn(x))
         validate_result(expected, got, what=s)
-
-
-@pytest.mark.parametrize("strategy", ["pallas-pell", "pallas-bcsr"])
-def test_empty_windows_regression(strategy):
-    """Matrices with EMPTY row-block windows (leading, interior,
-    trailing) must still produce a full-length, zero-filled y.
-
-    Regression for the round-1 bug: num_win was sized from
-    window.max()+1 so trailing empty windows truncated y, and interior
-    empty windows were never visited by the epilogue, returning
-    uninitialized VMEM garbage (ADVICE.md r1, confirmed on device)."""
-    from spmv_scpa_tpu.formats.csr import CSR
-    m, n = 6000, 512
-    # nonzeros only in rows 1100-1200 and 5900-5950: with the default
-    # window_h=128 (1024 rows/window) windows 0, 2, 3, 4 are empty
-    # (leading + interior), and rows past 5950 leave a trailing gap
-    rows = np.concatenate([np.arange(1100, 1200), np.arange(5900, 5950)])
-    cols = (rows * 7) % n
-    vals = np.linspace(1.0, 2.0, rows.shape[0])
-    A = CSR.from_coo("empty_windows", m, n, rows, cols, vals)
-    x = make_x(A.n)
-    expected = spmv_oracle(A, x)
-    for window_h in (128, 16):
-        prep = get_strategy(strategy).prepare(A, window_h=window_h)
-        got = np.asarray(prep.fn(x), dtype=np.float64)
-        assert got.shape == (m,), (strategy, window_h, got.shape)
-        validate_result(expected, got,
-                        what=f"{strategy} window_h={window_h}")
-        # the all-zero regions must be exactly zero, not garbage
-        assert np.all(got[:1100] == 0.0)
-        assert np.all(got[1200:5900] == 0.0)
-        assert np.all(got[5950:] == 0.0)
+    from spmv_scpa_tpu.ops import hell
+    from spmv_scpa_tpu.ops.registry import bind
+    E = hell.hell_layout(A)   # 2 nonzeros: fill is below the plan's
+    got = bind(*hell.make_hell(E, A.m, interpret=True))(x)
+    validate_result(expected, np.asarray(got), what="pallas-hell")
 
 
 def test_empty_windows_all_empty_matrix():
-    """A matrix with zero nonzeros spanning several windows."""
+    """A matrix with zero nonzeros spanning many row slices gives a
+    full-length all-zero y on every device path."""
     from spmv_scpa_tpu.formats.csr import CSR
     A = CSR.from_coo("all_empty", 4000, 64, np.array([], np.int64),
                      np.array([], np.int64), np.array([], np.float64))
     x = make_x(A.n)
-    for s in ("pallas-pell", "pallas-bcsr"):
-        got = np.asarray(get_strategy(s).prepare(A).fn(x))
+    for s, kw in (("pallas-hell", {"interpret": True}),
+                  ("xla-csr-segsum", {}), ("xla-ell-cm", {})):
+        got = np.asarray(get_strategy(s).prepare(A, **kw).fn(x))
         assert got.shape == (4000,)
         assert np.all(got == 0.0), s
-
-
-def test_pell_row_sort_matches_oracle():
-    """Rank-sort row clustering (the power-law densifier) + its
-    one-hot un-permute pass must be exact, including empty rows and a
-    non-multiple-of-1024 row count."""
-    from spmv_scpa_tpu import testing as synth
-    for A in (synth.powerlaw_csr(3000, 2000, seed=31),
-              synth.banded_csr(1500, row_nnz=5, bandwidth=40, seed=4)):
-        x = make_x(A.n)
-        expected = spmv_oracle(A, x)
-        prep = get_strategy("pallas-pell").prepare(
-            A, chunk=8, quantum=8, row_sort=True)
-        assert prep.meta["row_sort"]
-        got = np.asarray(prep.fn(x), dtype=np.float64)
-        assert got.shape == (A.m,)
-        validate_result(expected, got, what=f"pell-rowsort {A.name}")
-
-
-def test_pell_column_striped_large_n():
-    """x beyond the VMEM budget triggers the column-striped fused path
-    (one jit program summing per-stripe y) instead of the round-1 XLA
-    cliff. Budget forced tiny so a small matrix exercises it."""
-    from spmv_scpa_tpu import testing as synth
-    A = synth.banded_csr(300, 2000, row_nnz=7, bandwidth=900, seed=13)
-    x = make_x(A.n)
-    expected = spmv_oracle(A, x)
-    prep = get_strategy("pallas-pell").prepare(
-        A, chunk=4, x_vmem_budget=4096)  # 512-col stripes -> 4 stripes
-    assert prep.meta.get("stripes", 0) >= 2
-    got = np.asarray(prep.fn(x), dtype=np.float64)
-    validate_result(expected, got, what="pell-striped")
 
 
 def test_spmm_oracle_matches_dense():
@@ -139,14 +70,15 @@ def test_spmm_oracle_matches_dense():
                                rtol=1e-12)
 
 
-def test_spmm_segsum():
+@pytest.mark.parametrize("cols", [8, 64])
+def test_spmm_segsum(cols):
+    """SpMM at the two widths BASELINE.json config 3 names."""
     from spmv_scpa_tpu import testing as synth
-    from spmv_scpa_tpu.ops import xla as xla_ops
     A = synth.banded_csr(100, row_nnz=6, bandwidth=30, seed=2)
-    X = make_x(A.n, cols=8)
-    from spmv_scpa_tpu.ops.registry import bind
-    fn = bind(*xla_ops.make_csr_segsum_spmm(A))
-    validate_result(spmm_oracle(A, X), np.asarray(fn(X)), what="spmm")
+    X = make_x(A.n, cols=cols)
+    prep = get_strategy("xla-csr-segsum-spmm").prepare(A, cols=cols)
+    validate_result(spmm_oracle(A, X), np.asarray(prep.fn(X)),
+                    what=f"spmm cols={cols}")
 
 
 def test_auto_strategy():
@@ -155,29 +87,6 @@ def test_auto_strategy():
     A = synth.banded_csr(64, row_nnz=4, bandwidth=12, seed=3)
     x = make_x(A.n)
     validate_result(spmv_oracle(A, x), spmv(A, x), what="auto")
-
-
-def test_span_scheme_with_superpanels_and_escalated_window():
-    """Regression: scheme='span' must (a) repack at panel_w=1 — its
-    tile kernel has no superpanel support and silently mis-gathers —
-    and (b) pass the ESCALATED window_h to the tile kernel when the
-    requested one exceeds span_max (both returned wrong y, rel err
-    0.48 / 1.0, before the fix)."""
-    from spmv_scpa_tpu import testing as synth
-    A = synth.powerlaw_csr(1500, avg_nnz=20, seed=0)
-    x = make_x(A.n)
-    expected = spmv_oracle(A, x)
-    prep = get_strategy("pallas-pell").prepare(
-        A, chunk=8, quantum=8, panel_w=4, scheme="span")
-    assert prep.meta["panel_w"] == 1
-    validate_result(expected, np.asarray(prep.fn(x), np.float64),
-                    what="span + panel_w request")
-    prep = get_strategy("pallas-pell").prepare(
-        A, chunk=8, quantum=8, panel_w=1, scheme="span",
-        window_h=8, span_max=2)
-    assert prep.meta["window_h"] > 8  # escalated
-    validate_result(expected, np.asarray(prep.fn(x), np.float64),
-                    what="span + escalated window_h")
 
 
 def test_spmv_drives_spmm_only_strategies_with_1d_x():
@@ -220,89 +129,13 @@ def test_df64_matches_oracle_tight():
     assert rel < 1e-9, rel
 
 
-def test_bcsr_spmm_matches_oracle():
+def test_xla_dense_asks_for_highest_precision():
+    """An f32 matmul may run in TF32 on the GPU unless the program asks
+    for full precision; the dense path must ask."""
+    import jax
     from spmv_scpa_tpu import testing as synth
-    A = synth.banded_csr(200, 300, row_nnz=11, bandwidth=48, runs=3, seed=5)
-    X = make_x(A.n, cols=8)
-    prep = get_strategy("pallas-bcsr-spmm").prepare(A, cols=8, chunk=4)
-    got = np.asarray(prep.fn(X), dtype=np.float64)
-    validate_result(spmm_oracle(A, X), got, what="bcsr-spmm")
-
-
-def test_pell_hot_columns_matches_oracle():
-    """Hot-column virtual panels (the power-law fix) must be exact."""
-    from spmv_scpa_tpu import testing as synth
-    A = synth.powerlaw_csr(500, 500, seed=17)
-    x = make_x(A.n)
-    expected = spmv_oracle(A, x)
-    prep = get_strategy("pallas-pell").prepare(A, chunk=4, quantum=8,
-                                               hot_cols=128)
-    assert prep.meta["hot_cols"] in (0, 128)
-    got = np.asarray(prep.fn(x), dtype=np.float64)
-    validate_result(expected, got, what="pell-hot")
-    # fill must not be worse than without the remap
-    prep0 = get_strategy("pallas-pell").prepare(A, chunk=4, quantum=8)
-    assert prep.meta["fill"] >= prep0.meta["fill"] * 0.9
-
-
-def test_pell_superpanel_matches_oracle():
-    """panel_w superpanels (the scattered-matrix fill unlock): every
-    (panel_w, quantum) combination — including the q=1 wide epilogue —
-    must be exact on archetypes with empty rows, scattered columns,
-    and row-sorting engaged."""
-    from spmv_scpa_tpu import testing as synth
-    for A in (synth.webbase_csr(m=6000, seed=7),
-              synth.powerlaw_csr(1500, avg_nnz=20, seed=3),
-              synth.stencil_csr(1300, points=4, run_len=6,
-                                bandwidth=200)):
-        x = make_x(A.n)
-        expected = spmv_oracle(A, x)
-        for pw, q in ((2, 2), (4, 1), (8, 1), (4, 16)):
-            prep = get_strategy("pallas-pell").prepare(
-                A, chunk=8, quantum=q, panel_w=pw)
-            got = np.asarray(prep.fn(x), dtype=np.float64)
-            validate_result(expected, got,
-                            what=f"pell pw={pw} q={q} on {A.name}")
-            assert prep.meta["panel_w"] in (1, pw)
-
-
-def test_pell_superpanel_fill_gain():
-    """The whole point of panel_w: on a scattered short-row matrix the
-    superpanel layout must raise fill substantially vs pw=1."""
-    from spmv_scpa_tpu import testing as synth
-    A = synth.webbase_csr(m=20_000, seed=7)
-    spec = get_strategy("pallas-pell")
-    f1 = spec.prepare(A, chunk=8, quantum=1, panel_w=1).meta["fill"]
-    f8 = spec.prepare(A, chunk=8, quantum=1, panel_w=8).meta["fill"]
-    assert f8 > 1.3 * f1, (f1, f8)
-
-
-def test_pell_auto_tuning_resolves():
-    """quantum/panel_w 'auto' picks sane presets per structure."""
-    from spmv_scpa_tpu import testing as synth
-    dense = get_strategy("pallas-pell").prepare(
-        synth.stencil_csr(1300, points=4, run_len=6, bandwidth=200))
-    assert dense.meta["quantum"] >= 8 and dense.meta["panel_w"] == 1
-    scat = get_strategy("pallas-pell").prepare(
-        synth.webbase_csr(m=6000, seed=7))
-    assert scat.meta["quantum"] == 8 and scat.meta["panel_w"] == 4
-
-
-def test_pell_df64_fused_matches_oracle_tight():
-    """The fp64-grade fused Pallas kernel (digit-plane exact MXU
-    arithmetic) must hit rel <= 1e-9 vs the fp64 oracle on every
-    structural archetype — the reference computes natively in fp64
-    (include/csr.h:12); this is the usable-kernel completion of that
-    capability (VERDICT r2 item 4)."""
-    from spmv_scpa_tpu import testing as synth
-    spec = get_strategy("pallas-pell-df64")
-    for A in (synth.diag_csr(37),
-              synth.banded_csr(512, row_nnz=9, bandwidth=64, seed=3),
-              synth.powerlaw_csr(400, 400, seed=4),
-              synth.random_csr(200, 300, density=0.02, seed=3)):
-        x = make_x(A.n)
-        prep = spec.prepare(A)
-        y = np.asarray(prep.fn(x), np.float64)
-        ref = spmv_oracle(A, x)
-        rel = np.linalg.norm(ref - y) / np.linalg.norm(ref)
-        assert rel <= 1e-9, (A.name, rel)
+    from spmv_scpa_tpu.ops import xla as xla_ops
+    A = synth.random_csr(20, 30, density=0.2, seed=1)
+    raw, args = xla_ops.make_dense(A)
+    jaxpr = str(jax.make_jaxpr(raw)(np.ones(A.n, np.float32), *args))
+    assert "dot_general" in jaxpr and "HIGHEST" in jaxpr, jaxpr

@@ -74,7 +74,7 @@ def test_cli_end_to_end(mtx_file, tmp_path):
     from spmv_scpa_tpu.cli import main
     out = str(tmp_path / "res")
     rc = main(["-m", mtx_file, "-o", out, "-d",
-               "-b", "xla-csr-segsum", "--chunks", "8"])
+               "-b", "xla-csr-segsum"])
     assert rc == 0
     serial = (tmp_path / "res" / "serial.csv").read_text().splitlines()
     assert serial[0] == ("matrix,format,rows,cols,nnz,num_blocks,"
@@ -224,3 +224,47 @@ def test_mmio_chunked_parse_matches(monkeypatch):
     with pytest.raises(MatrixFormatError, match="trailing"):
         mmio.read((f"%%MatrixMarket matrix coordinate real general\n"
                    f"1000 1000 {nnz - 1}\n" + body).encode())
+
+
+def test_native_omp_without_openmp_refuses_threads(monkeypatch):
+    """A library built without OpenMP runs one thread: every builder
+    refuses a thread count above 1 instead of mislabelling its rows,
+    and still computes at one thread."""
+    from spmv_scpa_tpu import testing as synth
+    from spmv_scpa_tpu.ops import native_omp
+    from spmv_scpa_tpu.ops.oracle import spmv_oracle
+    from spmv_scpa_tpu.ops.registry import get_strategy
+    from spmv_scpa_tpu.utils.vector import make_x
+    if not native_omp.available():
+        pytest.skip("no native toolchain")
+    monkeypatch.setattr(native_omp, "openmp", lambda: False)
+    A = synth.banded_csr(500, row_nnz=7, bandwidth=30, seed=4)
+    x = make_x(A.n)
+    for name in ("omp-csr-guided", "omp-csr-nnz", "omp-ell"):
+        with pytest.raises(ValueError, match="without OpenMP"):
+            get_strategy(name).prepare(A, nthreads=4)
+        got = get_strategy(name).prepare(A, nthreads=1).fn(x)
+        assert np.linalg.norm(got - spmv_oracle(A, x)) < 1e-9, name
+
+
+def test_host_parallel_sweep_records_refusals_without_openmp(
+        monkeypatch, tmp_path):
+    """The runner's thread sweep on a single-threaded build: rows at
+    one thread, refusals (not failures, not rows) above it."""
+    from spmv_scpa_tpu import testing as synth
+    from spmv_scpa_tpu.bench.runner import RunConfig, run_benchmarks
+    from spmv_scpa_tpu.ops import native_omp
+    if not native_omp.available():
+        pytest.skip("no native toolchain")
+    monkeypatch.setattr(native_omp, "openmp", lambda: False)
+    cfg = RunConfig(out_dir=str(tmp_path), debug=True, host_parallel=True,
+                    omp_threads=(1, 4), strategies=["xla-csr-segsum"])
+    rows = run_benchmarks(synth.banded_csr(300, row_nnz=5, seed=2), cfg)
+    omp = sorted(r.strategy for r in rows if r.strategy.startswith("omp"))
+    assert omp == ["omp_csr_guided@1", "omp_csr_nnz@1", "omp_ell@1"]
+    assert sorted((n, c) for n, c, _ in cfg.skipped) == [
+        ("omp_csr_guided", "threads=4"), ("omp_csr_nnz", "threads=4"),
+        ("omp_ell", "threads=4")]
+    assert not cfg.failed
+    with open(tmp_path / "omp.csv") as f:
+        assert len(f.read().splitlines()) == 4     # header + 3 rows

@@ -34,8 +34,8 @@ def result_dir(tmp_path_factory):
     for _ in range(2):  # two iterations: medians aggregate >1 row
         rc = cli_main(
             ["-m", "synth:banded:m=96,row_nnz=5,bandwidth=16",
-             "-o", out, "-d", "-b", "xla-csr-segsum,pallas-pell",
-             "--chunks", "4", "--host-parallel"])
+             "-o", out, "-d", "-b", "xla-csr-segsum,xla-ell-cm",
+             "--host-parallel"])
         assert rc == 0
     return out
 
